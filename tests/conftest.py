@@ -50,3 +50,9 @@ def reference_asset(name: str) -> str:
     if not os.path.exists(path):
         pytest.skip(f"reference data asset {name} not available")
     return path
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU; skips where torch.cuda.is_available() is False")
