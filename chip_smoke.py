@@ -14,10 +14,20 @@ Run from the repository root:  python3 chip_smoke.py
 5. checks phi (finite, right shape, rel-L2 against the analytic signed
    distance |x| - 1 within 10% of the JAX package's on the same input) and
    the kernel against the plain version on the main path's own shell
-   queries, timing both at the main path's shapes.
+   queries, timing both at the main path's shapes;
+6. checks the paged-ELL SpMV kernel against its plain PyTorch version on
+   the card (random, multiplicity and forced-segment operators);
+7. drives the tet path through the public API: tests/data/knot_dec.obj at
+   the library's default options (conforming tet domain, Crouzeix-Raviart
+   face solve over the paged face operator, float32 with f64 defect
+   correction) -- one cold and three warm solves -- counting both kernels'
+   launches, checks phi against the JAX package's numbers on the same
+   input, and holds each kernel against its plain version at the tet
+   path's own shapes (the Yukawa kernel at the tet barycenters, the paged
+   kernel on the solve's face operator), timing both.
 
 The last two lines of standard output are a JSON summary of the kernels and
-the JSON status line.  Any failed check exits non-zero before them; so does
+the JSON status line; the card's name and power limit come before them.  Any failed check exits non-zero before them; so does
 a machine without CUDA, and a directory without the repository.
 """
 
@@ -46,6 +56,32 @@ ANALYTIC_BAND = 0.10
 DIR_TOL = 1e-4    # max abs error, normalized directions
 RAW_RTOL = 1e-4   # max abs error / max |X|, unnormalized sums
 SAMPLE_ROWS = 65536
+
+# tet phase: tests/data/knot_dec.obj at SignedHeatOptions() defaults.  The
+# JAX package on the same input (shm3d.tet.solver.SignedHeatTetSolver, CPU,
+# float32): the conforming mesh, the paged face operator, and phi
+KNOT = os.path.join(REPO, "tests", "data", "knot_dec.obj")
+KNOT_VERTICES = 198814
+KNOT_FACES = 2245964
+KNOT_L_NNZ = 15608852
+JAX_KNOT_PASSES = 97280        # with the TPU build's compile-shape padding
+JAX_PHI_MIN = -25.49828
+JAX_PHI_MAX = 145.07733
+JAX_PHI_MEAN_ABS = 55.45258
+JAX_PHI_MEAN_ABS_SRC = 0.74078
+JAX_FACE_RESIDUAL = 2.209e-4   # final f64 relative residual, face solve
+JAX_PROJ_RESIDUAL = 2.707e-10
+# relative bands on the phi statistics.  The port's float32 solve on the
+# H100 read 9.2e-4 (min), 4.1e-7 (max), 5.8e-6 (mean |phi|) and 7.8e-6
+# (mean |phi| at the sources) off these numbers; the minimum, a single
+# interior value, moves most with where float32 CG stops (up to 1.4e-3
+# under other summation orders, the other three up to 2.3e-5)
+PHI_BANDS = dict(min=1e-2, max=1e-4, mean_abs=1e-4, src_mean_abs=1e-4)
+FACE_RESIDUAL_MAX = 1e-3
+PROJ_RESIDUAL_MAX = 1e-8
+# paged-ELL kernel vs plain version, float32 on the card: the same products
+# summed in another order
+PELL_RTOL = 1e-5               # max abs error / max |y|
 
 
 def check(ok: bool, what: str) -> None:
@@ -118,6 +154,177 @@ def kernel_cases(yk, dev):
     check(err <= DIR_TOL, "far case within tolerance")
 
 
+def pell_compare(pell, P, x):
+    """(max abs error, max abs error / max |y|) of kernel vs plain."""
+    got = pell.paged_matvec_cuda(P, x)
+    ref = pell.paged_matvec_torch(P, x)
+    torch.cuda.synchronize()
+    check(got.shape == ref.shape and bool(torch.isfinite(got).all()),
+          "paged kernel output shape and finiteness")
+    err = (got - ref).abs().max().item()
+    return err, err / max(ref.abs().max().item(), 1e-30)
+
+
+def pell_cases(pell, ell, dev):
+    """Seeded random, multiplicity and forced-segment operators; each
+    checked and printed."""
+    import scipy.sparse as sp
+
+    rng = np.random.default_rng(2)
+
+    def banded(n, per_row, half):
+        rows = np.repeat(np.arange(n), per_row)
+        cols = (rows + rng.integers(-half, half + 1, rows.size)) % n
+        return sp.coo_matrix((rng.standard_normal(rows.size), (rows, cols)),
+                             shape=(n, n)).tocsr()
+
+    n, m, nnz = 100_003, 90_001, 1_000_000
+    random = sp.coo_matrix((rng.standard_normal(nnz), (rng.integers(0, n, nnz),
+                                                       rng.integers(0, m, nnz))),
+                           shape=(n, m)).tocsr()
+    cases = [("random 100003x90001", random, None),
+             ("multiplicity", banded(300_000, 9, 40), None),
+             ("forced segments", banded(11 * pell.PAGE + 5, 4, 600), 26)]
+    for name, A, seg_passes in cases:
+        saved = pell._SEG_PASSES
+        if seg_passes:
+            pell._SEG_PASSES = seg_passes
+        try:
+            P = pell.build_paged(A, np.float32)
+        finally:
+            pell._SEG_PASSES = saved
+        Pd = ell.device_put_tree(P, dev)
+        x = torch.as_tensor(rng.standard_normal(A.shape[1]), dtype=torch.float32,
+                            device=dev)
+        err, rel = pell_compare(pell, Pd, x)
+        print(f"paged kernel vs plain  {name}: {P.n_passes} passes in "
+              f"{len(P.segs)} segments, max err {err:.3e}, relative {rel:.3e} "
+              f"(tol {PELL_RTOL:g})")
+        check(rel <= PELL_RTOL, f"paged kernel {name} within tolerance")
+
+
+def tet_phase(smi, dev):
+    """The tet path on knot_dec; returns (the Yukawa kernel's tet-path
+    numbers, the paged_matvec entry of the kernels line)."""
+    from shm3d.io.mesh_io import read_geometry
+    from shm3d_torch import SignedHeatOptions, SignedHeatSolver
+    from shm3d_torch.ops import yukawa as yk
+    from shm3d_torch.solve import pell
+
+    geom = read_geometry(KNOT)
+    opts = SignedHeatOptions(disk_cache=False)
+    solver = SignedHeatSolver("tet", device=dev)
+    runs = []
+    yk.KERNEL_LAUNCHES = 0
+    pell.KERNEL_LAUNCHES = 0
+    for k in range(4):
+        before = pell.KERNEL_LAUNCHES
+        t0 = time.perf_counter()
+        res = solver.compute_distance(geom, opts)
+        torch.cuda.synchronize()
+        runs.append(dict(s=time.perf_counter() - t0, k2=pell.KERNEL_LAUNCHES - before,
+                         stats=dict(solver.last_stats)))
+    k1_launches, k2_launches = yk.KERNEL_LAUNCHES, pell.KERNEL_LAUNCHES
+    cached = next(iter(solver._impl._cache.values()))
+    cr = cached["cr_path"]
+    L = cr.arrays["L"]
+    stats = runs[-1]["stats"]
+    warm = [r["s"] for r in runs[1:]]
+    print(f"tet path: knot_dec.obj, {len(geom.faces)} input faces, default "
+          f"options (ZERO_SET, CR, float32, refine_steps=1), disk_cache=False")
+    print(f"  mesh: {res.mesh.n_vertices} vertices, {res.mesh.n_tets} tets, "
+          f"{res.mesh.n_faces} faces, conforming {res.mesh.conforming}")
+    print(f"  face operator: {type(L).__name__}, nnz {L.nnz}, {L.n_passes} passes "
+          f"in {len(L.segs)} segments (JAX package: {JAX_KNOT_PASSES} with its "
+          f"compile-shape padding), amg sizes {stats['amg_sizes']}")
+    print(f"  cold solve {runs[0]['s']:.3f} s, mem_peak_mb "
+          f"{runs[0]['stats']['mem_peak_mb']:.1f}, phases "
+          f"{json.dumps(runs[0]['stats']['phases'])}")
+    print(f"  warm solves {[round(w, 4) for w in warm]} s, median "
+          f"{statistics.median(warm):.4f} s, mem_peak_mb {stats['mem_peak_mb']:.1f}, "
+          f"phases {json.dumps(stats['phases'])}")
+    for k, r in enumerate(runs):
+        st = r["stats"]
+        print(f"  solve {k}: {r['s']:.3f} s, paged kernel launches {r['k2']}, "
+              f"face iters {st['iters']} (chunks {st['chunks']}), f64 residual "
+              f"passes {st['refine_pass_rels']}, projection iters {st['proj_iters']}, "
+              f"residual passes {st['proj_refine_pass_rels']}")
+    print(f"  kernel launches in the 4 solves: yukawa {k1_launches}, paged {k2_launches}")
+    check(k1_launches > 0, "the tet path launched the Yukawa kernel")
+    check(len({(r["stats"]["iters"], tuple(r["stats"]["refine_pass_rels"]))
+               for r in runs}) == 1, "the four tet solves repeat bit for bit")
+    check(all(r["k2"] > 0 for r in runs), "every tet solve launched the paged kernel")
+    check(all(r["stats"]["step3_path"] == "crouzeix-raviart" for r in runs),
+          "step 3 took the Crouzeix-Raviart path")
+    check(isinstance(L, pell.PagedMat) and L.nnz == KNOT_L_NNZ,
+          f"face operator paged with nnz {KNOT_L_NNZ}")
+    check(res.mesh.n_faces == KNOT_FACES, "conforming mesh face count")
+
+    phi = res.phi
+    check(phi.shape == (KNOT_VERTICES,), "phi shape")
+    check(bool(np.isfinite(phi).all()), "phi finite")
+    got = dict(min=float(phi.min()), max=float(phi.max()),
+               mean_abs=float(np.abs(phi).mean()),
+               src_mean_abs=float(np.abs(res.phi_at_sources()).mean()))
+    print(f"  phi min {got['min']:.5f} max {got['max']:.5f} mean|phi| "
+          f"{got['mean_abs']:.5f}, mean|phi| at the sources {got['src_mean_abs']:.5f} "
+          f"(JAX package: {JAX_PHI_MIN} / {JAX_PHI_MAX} / {JAX_PHI_MEAN_ABS} / "
+          f"{JAX_PHI_MEAN_ABS_SRC})")
+    print(f"  final f64 residuals: face {stats['residual']:.3e} (limit "
+          f"{FACE_RESIDUAL_MAX:g}; JAX {JAX_FACE_RESIDUAL:g}), projection "
+          f"{stats['proj_residual']:.3e} (limit {PROJ_RESIDUAL_MAX:g}; JAX "
+          f"{JAX_PROJ_RESIDUAL:g})")
+    for r in runs:
+        check(r["stats"]["residual"] <= FACE_RESIDUAL_MAX, "face residual")
+        check(r["stats"]["proj_residual"] <= PROJ_RESIDUAL_MAX, "projection residual")
+    for name, ref in (("min", JAX_PHI_MIN), ("max", JAX_PHI_MAX),
+                      ("mean_abs", JAX_PHI_MEAN_ABS),
+                      ("src_mean_abs", JAX_PHI_MEAN_ABS_SRC)):
+        band, limit = abs(got[name] - ref) / abs(ref), PHI_BANDS[name]
+        print(f"  phi {name}: off the JAX package's by {band:.3e} (limit {limit:g})")
+        check(band <= limit, f"phi {name} within {limit:g} of the JAX package")
+
+    # the Yukawa kernel at the tet path's own shapes: every tet barycenter
+    q, pts, vecs = cached["barys"], cached["points"], cached["vectors"]
+    lam = float(np.sqrt(1.0 / (opts.t_coef * cached["spacing"] ** 2)))
+    k1_err, _ = compare(yk, q, pts, vecs, lam, True)
+    print(f"kernel vs plain  tet-path barycenters Q={q.shape[0]} S={pts.shape[0]}: "
+          f"max err {k1_err:.3e} (tol {DIR_TOL:g})")
+    check(k1_err <= DIR_TOL, "Yukawa kernel at the tet barycenters within tolerance")
+    k1_ms = time_ms(lambda: yk.yukawa_field_cuda(q, pts, vecs, lam), 20)
+    k1_plain_ms = time_ms(lambda: yk.yukawa_field_torch(q, pts, vecs, lam), 3)
+    print(f"  yukawa kernel {k1_ms:.3f} ms, plain {k1_plain_ms:.3f} ms at the tet "
+          f"barycenters (1 launch per solve; {smi})")
+
+    # the kernel at the solve's own face operator
+    x = torch.as_tensor(np.random.default_rng(3).standard_normal(L.n_cols),
+                        dtype=torch.float32, device=dev)
+    err, rel = pell_compare(pell, L, x)
+    print(f"paged kernel vs plain  main-path face operator: max err {err:.3e}, "
+          f"relative {rel:.3e} (tol {PELL_RTOL:g})")
+    check(rel <= PELL_RTOL, "paged kernel on the face operator within tolerance")
+    t_kernel = time_ms(lambda: pell.paged_matvec_cuda(L, x), 20)
+    t_plain = time_ms(lambda: pell.paged_matvec_torch(L, x), 3)
+    streamed = sum(int(s.vals.numel()) * 8 for s in L.segs)
+    print(f"  kernel {t_kernel:.3f} ms, plain {t_plain:.3f} ms per face-operator "
+          f"matvec; {streamed / 1e9:.3f} GB of values and indices streamed "
+          f"({streamed / t_kernel / 1e6:.0f} GB/s by the kernel; {smi})")
+    per_solve = [r["k2"] for r in runs]
+    print(f"  paged launches per solve {per_solve}; per face CG iteration "
+          f"{per_solve[-1] / max(stats['iters'], 1):.2f}")
+    k1 = dict(launches=k1_launches, max_abs_err=k1_err, ms=k1_ms, plain_ms=k1_plain_ms)
+    return k1, {
+        "name": "paged_matvec",
+        "route": "cuda",
+        "source": "shm3d_torch/csrc/pell.cu",
+        "replaces": "shm3d/solve/pell.py:335",
+        "launches": k2_launches,
+        "max_abs_err": err,
+        "ms": t_kernel,
+        "plain_ms": t_plain,
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check "
@@ -130,6 +337,7 @@ def main() -> int:
     from shm3d_torch._device import resolve_device
     from shm3d_torch.ops import yukawa as yk
     from shm3d_torch.ops.farfield import DeviceShellPlan, _positions_of
+    from shm3d_torch.solve import ell, pell
 
     check(os.path.dirname(os.path.abspath(shm3d_torch.__file__)) ==
           os.path.join(REPO, "shm3d_torch"), "shm3d_torch imported from this checkout")
@@ -186,7 +394,7 @@ def main() -> int:
           f"constraint rows m={m_rows}, tform_eps {stats['tform_eps']}, "
           f"iters {stats['iters']}, rel_res {stats['rel_res']:.3e}, "
           f"mem_peak_mb {stats['mem_peak_mb']:.1f}")
-    print(f"  yukawa kernel launches during the 4 solves: {launches}")
+    print(f"  yukawa kernel launches during the 4 grid solves: {launches}")
     check(launches > 0, "the main path launched the Yukawa kernel")
     check(stats["step3_path"] == "projected-mg-pcg", "step 3 path")
     check(stats["tform_eps"] is not None, "full-row whitening tier at m > 8192")
@@ -230,17 +438,28 @@ def main() -> int:
               f"coarse Q={plan.coarse_pos.shape[0]} {t_coarse:.3f} ms "
               f"(S={pts.shape[0]}, {smi})")
 
+    # --- the paged-ELL kernel and the tet path ------------------------------
+    pell_cases(pell, ell, dev)
+    tet_k1, k2_entry = tet_phase(smi, dev)
+    check("jax" not in sys.modules, "JAX was never imported")
+
+    # the Yukawa entry covers both paths: launches summed, the larger error,
+    # and ms the kernel time of one solve of each (grid: shell + coarse
+    # launches; tet: the barycenter launch); per_path keeps them apart
+    grid_k1 = dict(launches=launches, max_abs_err=err, ms=times["kernel"],
+                   plain_ms=times["plain"])
+    print(f"card: {smi}")
     print(json.dumps({"kernels": [{
         "name": "yukawa_field",
         "route": "cuda",
         "source": "shm3d_torch/csrc/yukawa.cu",
         "replaces": "shm3d/ops/yukawa.py:129",
-        "launches": launches,
-        "max_abs_err": err,
-        "ms": times["kernel"],
-        "plain_ms": times["plain"],
-    }]}))
-    print(f"card: {smi}")
+        "launches": launches + tet_k1["launches"],
+        "max_abs_err": max(err, tet_k1["max_abs_err"]),
+        "ms": grid_k1["ms"] + tet_k1["ms"],
+        "plain_ms": grid_k1["plain_ms"] + tet_k1["plain_ms"],
+        "per_path": {"grid": grid_k1, "tet": tet_k1},
+    }, k2_entry]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -4,8 +4,8 @@ The same Signed Heat Method pipeline as ``shm3d`` (the JAX reference
 package), in PyTorch, with the Pallas TPU kernels rewritten by hand for
 NVIDIA Hopper (``shm3d_torch/csrc``).  The port never imports JAX; it shares
 the JAX-free host modules of ``shm3d`` (options, geometry I/O, source
-quadrature, grid construction); the options and the procedural fixtures
-are re-exported here.
+quadrature, grid construction, the tet mesher and FEM assembly); the
+options and the procedural fixtures are re-exported here.
 """
 
 from shm3d.config import LevelSetConstraint, SignedHeatOptions

@@ -20,6 +20,7 @@ import torch
 
 from shm3d.config import SignedHeatOptions
 from shm3d.geometry.procedural import make_icosphere, make_sphere_cloud
+from shm3d.io.mesh_io import PointCloud
 from shm3d.ops.farfield import _positions_of
 from shm3d.solve import projection as jproj
 from shm3d.solvers.grid import GridSolver as JaxGridSolver
@@ -164,8 +165,11 @@ def test_unported_paths_raise(case, monkeypatch):
         "beyond_full_row_cap": base.with_(dtype="float32"),
     }.get(case)
     if case == "tet_domain":
+        # the tet domain runs the Crouzeix-Raviart path; a point cloud takes
+        # the vertex path, which is not ported
+        cloud = PointCloud(geom.vertices.copy(), geom.vertices.copy())
         with pytest.raises(NotImplementedError, match="A14"):
-            SignedHeatSolver("tet", device="cpu")
+            SignedHeatSolver("tet", device="cpu").compute_distance(cloud, base)
         return
     if case in ("host_projected_f64", "beyond_full_row_cap"):
         monkeypatch.setattr(projection, "ORTHO_GRAM_CAP", 0)
