@@ -24,13 +24,29 @@ Run from the repository root:  python3 chip_smoke.py
    launches, checks phi against the JAX package's numbers on the same
    input, and holds each kernel against its plain version at the tet
    path's own shapes (the Yukawa kernel at the tet barycenters, the paged
-   kernel on the solve's face operator), timing both.
+   kernel on the solve's face operator), timing both, and times the paged
+   kernel against its bounds (padded and useful bytes over the measured
+   memory ceiling) and against one cuSPARSE CSR product of the same
+   operator (a yardstick only);
+8. drives the grid domain's default tier on the main path's input
+   (float32 solve with float64 defect correction, refine_steps=1) -- one
+   cold and three warm solves and a reference solve refined to 1e-11 --
+   and checks the fast tier's rel-L2 against that reference (<= 1e-5), the
+   correction's residual, and that refinement adds no Yukawa launches;
+9. the roofline phase: the Yukawa speed-of-light probe (K3) against its
+   plain version, then K3 and the Yukawa kernel at bench_kernels.py's three
+   shapes and at the main path's two launch shapes, each against the SFU
+   bound (two MUFU operations a pair at the card's SM clock), and a 1 GiB
+   float32 triad as the measured memory ceiling.
 
-The last two lines of standard output are a JSON summary of the kernels and
-the JSON status line; the card's name and power limit come before them.  Any failed check exits non-zero before them; so does
-a machine without CUDA, and a directory without the repository.
+Every kernel's launch count is set to 0 just before the path that runs it
+and read just after.  The last two lines of standard output are a JSON
+summary of the kernels and the JSON status line; the card's name and power
+limit come before them.  Any failed check exits non-zero before them; so
+does a machine without CUDA, and a directory without the repository.
 """
 
+import hashlib
 import json
 import os
 import statistics
@@ -83,11 +99,66 @@ PROJ_RESIDUAL_MAX = 1e-8
 # summed in another order
 PELL_RTOL = 1e-5               # max abs error / max |y|
 
+# default tier on the main path's input.  The JAX package on the same input
+# (shm3d.solvers.grid.GridSolver, CPU, JAX x64 off, so float32 solves with
+# two-float residuals, as on the TPU): rel-L2 of each tier against the
+# solve refined to 1e-11, and the default tier's per-pass f64 residuals
+JAX_REL_L2_FAST_TIER = 1.0620449766978294e-06
+JAX_REL_L2_DEFAULT_TIER = 3.324839665958726e-10
+JAX_DEFAULT_PASS_RELS = [7.832e-05, 6.361e-07, 5.852e-09, 3.409e-11]
+FAST_TIER_REL_L2_MAX = 1e-5    # the reference's accuracy bar (BASELINE.md)
+
+# roofline phase: bench_kernels.py's shapes (queries, sources), lambda 4
+ROOFLINE_SHAPES = ((1 << 19, 52290), (1 << 20, 52290), (1 << 20, 8192))
+ROOFLINE_LAM = 4.0
+SKELETON_RTOL = 1e-5           # max |kernel - plain| / row sum
+# far from every source a row's terms underflow in float32 (the probe has no
+# running minimum): there both versions give 0, and the error is taken
+# relative to this floor instead
+ROW_SUM_FLOOR = 1e-30
+SMS, MUFU_PER_CLK = 132, 16    # H100 SXM: SMs, special-function results/clk/SM
+MUFU_PER_PAIR = 2              # rsqrt and the exponential's ex2
+HBM_BYTES_S = 3.35e12          # published H100 SXM memory rate
+FP32_FLOPS_S = 67e12           # published H100 SXM float32 rate (no tensor cores)
+TRIAD_FLOATS = 1 << 28         # 1 GiB of float32 per operand
+
 
 def check(ok: bool, what: str) -> None:
     if not ok:
         print(f"FAILED: {what}", file=sys.stderr, flush=True)
         sys.exit(1)
+
+
+def check_no_jax_package() -> None:
+    check("jax" not in sys.modules, "JAX was never imported")
+    bad = sorted(m for m in sys.modules if m == "shm3d" or m.startswith("shm3d."))
+    check(not bad, f"no module of the JAX package was imported ({bad[:5]})")
+
+
+def smi_query(field: str) -> str:
+    return subprocess.run(
+        ["nvidia-smi", f"--query-gpu={field}", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
+
+
+def row_rel_err(got, ref) -> float:
+    """max |got - ref| / row sum, the row sum floored at ROW_SUM_FLOOR."""
+    return ((got - ref).abs() / ref.clamp_min(ROW_SUM_FLOOR)).max().item()
+
+
+def sfu_pairs_per_s() -> float:
+    """The SFU bound of a Yukawa pair: SMS x MUFU_PER_CLK results a clock at
+    the card's maximum SM clock, MUFU_PER_PAIR results a pair."""
+    mhz = float(smi_query("clocks.max.sm"))
+    return SMS * MUFU_PER_CLK * mhz * 1e6 / MUFU_PER_PAIR
+
+
+def pair_bound_ms(pairs: float, queries: int, sources: int, sfu: float,
+                  out_floats: int = 3, src_floats: int = 6) -> float:
+    """Least time of a Yukawa-type launch: the larger of its SFU time and
+    its bytes (queries and outputs once, sources once) over HBM_BYTES_S."""
+    nbytes = 4 * (queries * (3 + out_floats) + sources * src_floats)
+    return max(pairs / sfu, nbytes / HBM_BYTES_S) * 1e3
 
 
 def time_ms(fn, reps: int) -> float:
@@ -203,10 +274,11 @@ def pell_cases(pell, ell, dev):
         check(rel <= PELL_RTOL, f"paged kernel {name} within tolerance")
 
 
-def tet_phase(smi, dev):
+def tet_phase(smi, dev, ceiling):
     """The tet path on knot_dec; returns (the Yukawa kernel's tet-path
-    numbers, the paged_matvec entry of the kernels line)."""
-    from shm3d.io.mesh_io import read_geometry
+    numbers, the paged_matvec entry of the kernels line).  ``ceiling`` is
+    the measured memory rate (bytes/s) the paged kernel is held against."""
+    from shm3d_torch.io.mesh_io import read_geometry
     from shm3d_torch import SignedHeatOptions, SignedHeatSolver
     from shm3d_torch.ops import yukawa as yk
     from shm3d_torch.solve import pell
@@ -312,7 +384,35 @@ def tet_phase(smi, dev):
     per_solve = [r["k2"] for r in runs]
     print(f"  paged launches per solve {per_solve}; per face CG iteration "
           f"{per_solve[-1] / max(stats['iters'], 1):.2f}")
-    k1 = dict(launches=k1_launches, max_abs_err=k1_err, ms=k1_ms, plain_ms=k1_plain_ms)
+
+    # bounds: the bytes of the paged layout (every slot of every pass) and
+    # the bytes the product needs (each nonzero's value and column once,
+    # x and y once), over the published rate and the measured ceiling
+    xy = 4 * (L.n_cols + L.n_rows)
+    padded, useful = streamed + xy, 8 * L.nnz + xy
+    bound_ms = useful / HBM_BYTES_S * 1e3
+    for name, nbytes in (("padded", padded), ("useful", useful)):
+        print(f"  paged kernel vs {name} bytes {nbytes / 1e9:.4f} GB: "
+              f"{nbytes / ceiling * 1e3:.4f} ms at the measured ceiling "
+              f"({nbytes / ceiling * 1e3 / t_kernel:.1%} of the kernel's time), "
+              f"{nbytes / HBM_BYTES_S * 1e3:.4f} ms at 3.35 TB/s")
+    # the one library call that computes the same y = L x: cuSPARSE CSR SpMV
+    H = cr._H
+    Acsr = torch.sparse_csr_tensor(
+        torch.as_tensor(H.indptr, dtype=torch.int32, device=dev),
+        torch.as_tensor(H.indices, dtype=torch.int32, device=dev),
+        torch.as_tensor(H.data, dtype=torch.float32, device=dev), size=H.shape)
+    y_lib = Acsr @ x
+    y_ref = pell.paged_matvec_torch(L, x)
+    lib_rel = ((y_lib - y_ref).abs().max() / y_ref.abs().max()).item()
+    t_lib = time_ms(lambda: Acsr @ x, 20)
+    print(f"  cuSPARSE CSR SpMV of the same operator (yardstick, not on any "
+          f"path): {t_lib:.4f} ms, relative difference {lib_rel:.2e}; the paged "
+          f"kernel at {t_kernel / t_lib:.2f}x its time ({smi})")
+    check(lib_rel <= PELL_RTOL, "cuSPARSE product agrees with the plain version")
+    k1 = dict(launches=k1_launches, max_abs_err=k1_err, ms=k1_ms, plain_ms=k1_plain_ms,
+              pairs=int(q.shape[0]) * int(pts.shape[0]), queries=int(q.shape[0]),
+              sources=int(pts.shape[0]))
     return k1, {
         "name": "paged_matvec",
         "route": "cuda",
@@ -322,7 +422,183 @@ def tet_phase(smi, dev):
         "max_abs_err": err,
         "ms": t_kernel,
         "plain_ms": t_plain,
+        "bound_ms": bound_ms,
+        "bound_by": "bytes",
+        "library_ms": t_lib,
     }
+
+
+def default_tier_phase(solver, geom, opts, phi_fast, yk, smi):
+    """The grid domain's default tier on the main path's input, with the
+    protocol of bench.py's accuracy block: one cold and three warm solves
+    at refine_steps=1, then a solve refined to 1e-11 as the reference."""
+    opts1 = opts.with_(refine_steps=1)
+    print(f"default tier: the main path's input at refine_steps=1, refine_mode="
+          f"{opts1.refine_mode!r}, refine_target {opts1.refine_target:g} (the "
+          f"fast tier's discretization, so the first solve is cold only in "
+          f"the refinement: the host Gram factor)")
+    runs = []
+    yk.KERNEL_LAUNCHES = 0
+    for k in range(4):
+        before = yk.KERNEL_LAUNCHES
+        t0 = time.perf_counter()
+        res1 = solver.compute_distance(geom, opts1)
+        torch.cuda.synchronize()
+        runs.append(dict(s=time.perf_counter() - t0, k1=yk.KERNEL_LAUNCHES - before,
+                         stats=dict(solver.last_stats),
+                         phi=hashlib.sha1(res1.phi.tobytes()).hexdigest()))
+    k1_default = yk.KERNEL_LAUNCHES
+    phi1 = res1.phi
+    before = yk.KERNEL_LAUNCHES
+    t0 = time.perf_counter()
+    res_ref = solver.compute_distance(
+        geom, opts.with_(refine_steps=10, refine_target=1e-11))
+    torch.cuda.synchronize()
+    ref_s = time.perf_counter() - t0
+    ref_stats = dict(solver.last_stats)
+    ref_k1 = yk.KERNEL_LAUNCHES - before
+    phi_ref = res_ref.phi
+    nrm = float(np.linalg.norm(phi_ref))
+    rel_fast = float(np.linalg.norm(phi_fast - phi_ref)) / nrm
+    rel_default = float(np.linalg.norm(phi1 - phi_ref)) / nrm
+    for k, r in enumerate(runs):
+        st = r["stats"]
+        print(f"  solve {k} ({'cold' if k == 0 else 'warm'}): {r['s']:.4f} s, yukawa "
+              f"launches {r['k1']}, refine_pass_rels {st.get('refine_pass_rels')}, "
+              f"refine_rel_res {st.get('refine_rel_res')}, correction_iters "
+              f"{st.get('correction_iters')}, refine_detail {st.get('refine_detail')}, "
+              f"phases {json.dumps(st['phases'])}")
+    warm = [r["s"] for r in runs[1:]]
+    print(f"  warm default-tier solves {[round(w, 4) for w in warm]} s, median "
+          f"{statistics.median(warm):.4f} s ({smi})")
+    print(f"  reference solve (refine_steps=10, refine_target=1e-11): {ref_s:.3f} s, "
+          f"refine_pass_rels {ref_stats.get('refine_pass_rels')}, refine_rel_res "
+          f"{ref_stats.get('refine_rel_res')}, correction_iters "
+          f"{ref_stats.get('correction_iters')}, yukawa launches {ref_k1}")
+    print(f"  rel_l2_fast_tier {rel_fast:.6e} (limit {FAST_TIER_REL_L2_MAX:g}; JAX "
+          f"package, same input: {JAX_REL_L2_FAST_TIER:.6e})")
+    print(f"  rel_l2_default_tier {rel_default:.6e} (JAX package, same input: "
+          f"{JAX_REL_L2_DEFAULT_TIER:.6e}; its passes {JAX_DEFAULT_PASS_RELS})")
+    print(f"  yukawa kernel launches in the 4 default-tier solves: {k1_default}; "
+          f"distinct phi among them: {len({r['phi'] for r in runs})}")
+    stats = runs[-1]["stats"]
+    check(rel_fast <= FAST_TIER_REL_L2_MAX, "fast tier within 1e-5 of the refined reference")
+    check(all("refine_skipped" not in r["stats"] for r in runs)
+          and "refine_skipped" not in ref_stats, "no solve skipped the refinement")
+    check(all(r["stats"]["refine_rel_res"] <= r["stats"]["refine_pass_rels"][0]
+              for r in runs), "the default tier's residual is at most the fast tier's defect")
+    check(all(r["k1"] == 2 for r in runs) and ref_k1 == 2,
+          "refinement adds no Yukawa launches (2 per solve)")
+    check(bool(np.isfinite(phi1).all()) and phi1.shape == phi_fast.shape,
+          "default-tier phi finite, of the fast tier's shape")
+    return dict(rel_l2_fast_tier=rel_fast, rel_l2_default_tier=rel_default,
+                refine_rel_res=stats["refine_rel_res"],
+                warm_median_s=statistics.median(warm))
+
+
+def hbm_ceiling(dev, smi) -> float:
+    """Measured memory ceiling: a = b + s c over 1 GiB float32 operands
+    (two reads and one write a float), plain torch, a measurement only."""
+    a, b, c = (torch.empty(TRIAD_FLOATS, dtype=torch.float32, device=dev) for _ in range(3))
+    b.uniform_()
+    c.uniform_()
+    t = time_ms(lambda: torch.add(b, c, alpha=0.5, out=a), 10)
+    rate = 3 * 4 * TRIAD_FLOATS / (t * 1e-3)
+    print(f"memory ceiling: 1 GiB float32 triad {t:.3f} ms, {rate / 1e12:.3f} TB/s "
+          f"({rate / HBM_BYTES_S:.1%} of 3.35 TB/s; {smi})")
+    del a, b, c
+    torch.cuda.empty_cache()
+    return rate
+
+
+def roofline_phase(yk, ys, plan, pts, vecs, lam, sfu, smi, dev):
+    """K3 against its plain version; K3 and the Yukawa kernel at
+    bench_kernels.py's shapes and the main path's two launch shapes, each
+    against the SFU bound.  Returns the K3 entry of the kernels line."""
+    print(f"roofline: SFU bound {sfu:.4e} pairs/s ({SMS} SMs x {MUFU_PER_CLK} MUFU/clk "
+          f"at clocks.max.sm {smi_query('clocks.max.sm')} MHz, {MUFU_PER_PAIR} MUFU a pair)")
+    rng = np.random.default_rng(0)
+    ys.KERNEL_LAUNCHES = 0
+    # the probe against its plain version at the main path's shapes
+    rows = np.sort(rng.choice(plan.shell_pos.shape[0],
+                              size=min(SAMPLE_ROWS, plan.shell_pos.shape[0]), replace=False))
+    errs = []
+    for name, q in (("shell sample", plan.shell_pos[torch.as_tensor(rows, device=dev)].contiguous()),
+                    ("coarse", plan.coarse_pos)):
+        got = ys.skeleton_sum(q, pts, lam)
+        ref = ys.skeleton_sum_torch(q, pts, lam)
+        torch.cuda.synchronize()
+        abs_err = (got - ref).abs().max().item()
+        rel = row_rel_err(got, ref)
+        errs.append(abs_err)
+        print(f"skeleton kernel vs plain  main-path {name} Q={q.shape[0]} S={pts.shape[0]}: "
+              f"max abs err {abs_err:.3e}, max err / row sum {rel:.3e} (tol {SKELETON_RTOL:g}; "
+              f"{int((ref < ROW_SUM_FLOOR).sum())} rows under the {ROW_SUM_FLOOR:g} floor)")
+        check(bool(torch.isfinite(got).all()), f"skeleton {name} finite")
+        check(rel <= SKELETON_RTOL, f"skeleton kernel {name} within tolerance")
+
+    rows_out = []
+    shapes = [("bench", q_n, s_n) for q_n, s_n in ROOFLINE_SHAPES]
+    shapes += [("main-path shell", plan.shell_pos, None), ("main-path coarse", plan.coarse_pos, None)]
+    for label, q_spec, s_n in shapes:
+        if s_n is None:  # the main path's own launch
+            q, p, v, lam_k = q_spec, pts, vecs, lam
+        else:
+            q = torch.as_tensor(rng.standard_normal((q_spec, 3)), dtype=torch.float32, device=dev)
+            p = torch.as_tensor(rng.standard_normal((s_n, 3)) * 0.3, dtype=torch.float32, device=dev)
+            v = torch.as_tensor(rng.standard_normal((s_n, 3)), dtype=torch.float32, device=dev)
+            lam_k = ROOFLINE_LAM
+            got = ys.skeleton_sum(q[:4096], p, lam_k)
+            ref = ys.skeleton_sum_torch(q[:4096], p, lam_k)
+            check(row_rel_err(got, ref) <= SKELETON_RTOL,
+                  f"skeleton kernel at {label} Q={q.shape[0]} S={s_n} within tolerance")
+        Q, S = int(q.shape[0]), int(p.shape[0])
+        pairs = Q * S
+        reps = 3 if pairs > 2e10 else 10
+        # turns: K1, K3, K3, K1 (twice) on the same inputs
+        t1, t3 = [], []
+        for _ in range(2):
+            t1.append(time_ms(lambda: yk.yukawa_field_cuda(q, p, v, lam_k), reps))
+            t3.append(time_ms(lambda: ys.skeleton_sum_cuda(q, p, lam_k), reps))
+            t3.append(time_ms(lambda: ys.skeleton_sum_cuda(q, p, lam_k), reps))
+            t1.append(time_ms(lambda: yk.yukawa_field_cuda(q, p, v, lam_k), reps))
+        k1_ms, k3_ms = statistics.median(t1), statistics.median(t3)
+        noise = max((max(t1) - min(t1)) / k1_ms, (max(t3) - min(t3)) / k3_ms)
+        row = dict(shape=label, Q=Q, S=S, pairs=pairs, k1_ms=k1_ms, k3_ms=k3_ms,
+                   pct_of_skeleton=100.0 * k3_ms / k1_ms,
+                   k1_pairs_s=pairs / (k1_ms * 1e-3), k3_pairs_s=pairs / (k3_ms * 1e-3),
+                   k1_pct_sfu=100.0 * pairs / (k1_ms * 1e-3) / sfu,
+                   k3_pct_sfu=100.0 * pairs / (k3_ms * 1e-3) / sfu, noise=noise,
+                   within_noise=abs(k1_ms - k3_ms) / k1_ms <= noise)
+        rows_out.append(row)
+        print(f"  {label} Q={Q} S={S}: yukawa {k1_ms:.3f} ms ({row['k1_pairs_s']:.3e} pairs/s, "
+              f"{row['k1_pct_sfu']:.1f}% of SFU), skeleton {k3_ms:.3f} ms "
+              f"({row['k3_pairs_s']:.3e} pairs/s, {row['k3_pct_sfu']:.1f}% of SFU); "
+              f"pct_of_skeleton {row['pct_of_skeleton']:.1f}; spread of the turns "
+              f"{noise:.1%}{' -- the two differ by less than the noise' if row['within_noise'] else ''}")
+    print("roofline rows: " + json.dumps(rows_out))
+    launches = ys.KERNEL_LAUNCHES
+
+    main = [r for r in rows_out if r["shape"].startswith("main-path")]
+    plain_ms = sum(time_ms(lambda: ys.skeleton_sum_torch(qq, pts, lam), 2)
+                   for qq in (plan.shell_pos, plan.coarse_pos))
+    k3_ms = sum(r["k3_ms"] for r in main)
+    print(f"  skeleton kernel at the main path's two shapes {k3_ms:.3f} ms, plain "
+          f"{plain_ms:.3f} ms; skeleton launches in this phase {launches} ({smi})")
+    check(launches > 0, "the roofline phase launched the skeleton kernel")
+    return {
+        "name": "yukawa_skeleton",
+        "route": "cuda",
+        "source": "shm3d_torch/csrc/yukawa_skeleton.cu",
+        "replaces": "bench_kernels.py:92",
+        "launches": launches,
+        "max_abs_err": max(errs),
+        "ms": k3_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": sum(pair_bound_ms(r["pairs"], r["Q"], r["S"], sfu, 1, 3) for r in main),
+        "bound_by": "operations",
+        "library_ms": None,
+    }, rows_out
 
 
 def main() -> int:
@@ -336,6 +612,7 @@ def main() -> int:
     from shm3d_torch import _build
     from shm3d_torch._device import resolve_device
     from shm3d_torch.ops import yukawa as yk
+    from shm3d_torch.ops import yukawa_skeleton as ys
     from shm3d_torch.ops.farfield import DeviceShellPlan, _positions_of
     from shm3d_torch.solve import ell, pell
 
@@ -414,7 +691,7 @@ def main() -> int:
           f"{ANALYTIC_BAND:.0%})")
     check(finite, "phi finite")
     check(band <= ANALYTIC_BAND, "analytic rel-L2 within 10% of the JAX package")
-    check("jax" not in sys.modules, "JAX was never imported")
+    check_no_jax_package()
 
     # --- the kernel at the main path's shapes --------------------------------
     plan = next(v for v in cached.values() if isinstance(v, DeviceShellPlan))
@@ -438,16 +715,29 @@ def main() -> int:
               f"coarse Q={plan.coarse_pos.shape[0]} {t_coarse:.3f} ms "
               f"(S={pts.shape[0]}, {smi})")
 
-    # --- the paged-ELL kernel and the tet path ------------------------------
+    # --- the default tier, the roofline, the paged kernel, the tet path -----
+    default_tier_phase(solver, geom, opts, phi, yk, smi)
+    check_no_jax_package()
+    sfu = sfu_pairs_per_s()
+    ceiling = hbm_ceiling(dev, smi)
+    k3_entry, _ = roofline_phase(yk, ys, plan, pts, vecs, lam, sfu, smi, dev)
     pell_cases(pell, ell, dev)
-    tet_k1, k2_entry = tet_phase(smi, dev)
-    check("jax" not in sys.modules, "JAX was never imported")
+    tet_k1, k2_entry = tet_phase(smi, dev, ceiling)
+    check_no_jax_package()
 
     # the Yukawa entry covers both paths: launches summed, the larger error,
     # and ms the kernel time of one solve of each (grid: shell + coarse
-    # launches; tet: the barycenter launch); per_path keeps them apart
+    # launches; tet: the barycenter launch); per_path keeps them apart.  No
+    # single PyTorch call computes it (library_ms null).
+    S = int(pts.shape[0])
+    grid_bound = sum(pair_bound_ms(int(qq.shape[0]) * S, int(qq.shape[0]), S, sfu)
+                     for qq in (plan.shell_pos, plan.coarse_pos))
+    tet_bound = pair_bound_ms(tet_k1["pairs"], tet_k1["queries"], tet_k1["sources"], sfu)
     grid_k1 = dict(launches=launches, max_abs_err=err, ms=times["kernel"],
-                   plain_ms=times["plain"])
+                   plain_ms=times["plain"], bound_ms=grid_bound)
+    tet_k1["bound_ms"] = tet_bound
+    print(f"yukawa kernel vs its SFU bound: grid {grid_k1['ms']:.3f} ms vs "
+          f"{grid_bound:.3f} ms, tet {tet_k1['ms']:.3f} ms vs {tet_bound:.3f} ms ({smi})")
     print(f"card: {smi}")
     print(json.dumps({"kernels": [{
         "name": "yukawa_field",
@@ -458,8 +748,11 @@ def main() -> int:
         "max_abs_err": max(err, tet_k1["max_abs_err"]),
         "ms": grid_k1["ms"] + tet_k1["ms"],
         "plain_ms": grid_k1["plain_ms"] + tet_k1["plain_ms"],
+        "bound_ms": grid_bound + tet_bound,
+        "bound_by": "operations",
+        "library_ms": None,
         "per_path": {"grid": grid_k1, "tet": tet_k1},
-    }, k2_entry]}))
+    }, k2_entry, k3_entry]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

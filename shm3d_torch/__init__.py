@@ -2,14 +2,17 @@
 
 The same Signed Heat Method pipeline as ``shm3d`` (the JAX reference
 package), in PyTorch, with the Pallas TPU kernels rewritten by hand for
-NVIDIA Hopper (``shm3d_torch/csrc``).  The port never imports JAX; it shares
-the JAX-free host modules of ``shm3d`` (options, geometry I/O, source
-quadrature, grid construction, the tet mesher and FEM assembly); the
-options and the procedural fixtures are re-exported here.
+NVIDIA Hopper (``shm3d_torch/csrc``).  The port imports neither JAX nor
+``shm3d``: it keeps its own copies of the host modules it needs (options,
+geometry I/O, source quadrature, grid construction, the tet mesher with its
+native core, FEM assembly, orderings, the artifact stores, contouring) under
+the same relative paths.  Its entry points take only its own option and
+geometry types.  The options and the procedural fixtures are re-exported
+here.
 """
 
-from shm3d.config import LevelSetConstraint, SignedHeatOptions
-from shm3d.geometry.procedural import make_icosphere, make_sphere_cloud
+from .config import LevelSetConstraint, SignedHeatOptions
+from .geometry.procedural import make_icosphere, make_sphere_cloud
 
 from .api import SignedHeatSolver
 

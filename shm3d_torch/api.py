@@ -6,8 +6,8 @@ from typing import Tuple, Union
 
 import numpy as np
 
-from shm3d.config import SignedHeatOptions
-from shm3d.io.mesh_io import Mesh, PointCloud
+from .config import SignedHeatOptions
+from .io.mesh_io import Mesh, PointCloud
 
 
 class SignedHeatSolver:
@@ -41,8 +41,8 @@ class SignedHeatSolver:
 
     def isosurface(self, result, isoval: float = 0.0) -> Tuple[np.ndarray, np.ndarray]:
         """Isosurface mesh (V, F) of a solve result, extracted on the host
-        with shm3d's marching tets."""
-        from shm3d.ops import contour
+        by marching tets (``shm3d_torch.ops.contour``)."""
+        from .ops import contour
 
         if self.domain == "grid":
             return contour.grid_isosurface(result.grid, result.phi, isoval)

@@ -16,7 +16,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from shm3d.domains.grid import GridSpec
+from ..domains.grid import GridSpec
 
 from .yukawa import yukawa_field
 

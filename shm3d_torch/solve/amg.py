@@ -20,7 +20,7 @@ from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 
-from shm3d.utils import order
+from ..utils import order
 
 from ..utils import tree as tree_mod
 from . import ell, pell

@@ -30,7 +30,7 @@ def _coarse_pinv_unit(n: int) -> np.ndarray:
     an (n, n, n) grid (mirrored boundaries), as a host float64 array.  The
     null constant mode is truncated, keeping the result symmetric PSD (a
     valid MINRES/CG preconditioner block)."""
-    from shm3d.domains import grid as griddom
+    from ..domains import grid as griddom
 
     spec = griddom.GridSpec((0.0, 0.0, 0.0), 1.0, n)
     H = -griddom.laplacian_matrix(spec).toarray()

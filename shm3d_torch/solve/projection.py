@@ -222,3 +222,26 @@ def make_projector(nodes8: torch.Tensor, coeffs8: torch.Tensor, gram: GramTable,
         return v.index_add(0, gram.touched, -(B.T @ w))
 
     return project
+
+
+# copied from shm3d/solve/projection.py (host_gram_factor, host_project):
+# the exact float64 projection of the defect correction
+def host_gram_factor(nodes8: np.ndarray, coeffs8: np.ndarray, n: int):
+    """(A, splu(A A^T)) on the host: the sparse rows and the LU factor of
+    their sparse Gram matrix, with a 1e-14 shift for exact-duplicate rows."""
+    import scipy.sparse as sp
+    import scipy.sparse.linalg as spla
+
+    m = nodes8.shape[0]
+    rows = np.repeat(np.arange(m), 8)
+    A = sp.coo_matrix(
+        (coeffs8.reshape(-1), (rows, nodes8.reshape(-1))), shape=(m, n)
+    ).tocsr()
+    gram = (A @ A.T).tocsc()
+    gram = gram + 1e-14 * sp.eye(m, format="csc")
+    return A, spla.splu(gram)
+
+
+def host_project(v: np.ndarray, A, gram_lu) -> np.ndarray:
+    """Exact float64 P v with the host factorization."""
+    return v - A.T @ gram_lu.solve(A @ v)

@@ -1,37 +1,48 @@
 """Grid-domain solver: the device pipeline on a regular grid (port of the
-fast tier of shm3d.solvers.grid).
+fast and default tiers of shm3d.solvers.grid).
 
   host:   sources + grid spec + trilinear constraint rows + Gram artifacts
           (NumPy, cached in memory and on disk)
   device: Yukawa kernel (dense or shell) -> adjoint divergence ->
-          projected pin-aware MG-PCG -> mean shift
+          projected pin-aware MG-PCG -> [float64 defect correction] ->
+          mean shift
 
 The always-on zero-set pinning (KKT [[L, A^T], [A, 0]], phi = -u) is solved
 with the null-space method: multigrid-preconditioned CG on
 P H P u = P b, H = -L (shm3d_torch.solve.projection).
 
+The default tier (``refine_steps > 0`` with float32) corrects the float32
+solve with exact float64 residuals of the projected system: on the device in
+native float64 (``refine_mode="pair"``, the default; the JAX package's
+two-float arithmetic answers the TPU's lack of float64) or in host NumPy
+(``refine_mode="host"``).  Either way the (m, m) Gram solve of the
+projection runs on the host (splu) and each correction is a float32
+projected MG-PCG solve.
+
 Outside this port so far (each raises NotImplementedError naming its ROADMAP
-item): float64 defect correction (``refine_steps > 0`` with float32), fast
-integration, the MINRES-on-KKT method, and the subsampled-pin and
-host-projected tiers taken past ORTHO_GRAM_CAP in float64 or past
+item): fast integration, the MINRES-on-KKT method, and the subsampled-pin
+and host-projected tiers taken past ORTHO_GRAM_CAP in float64 or past
 TFORM_FULL_CAP.
 """
 
 from __future__ import annotations
 
 import math
+import time
+import warnings
 from typing import Optional
 
 import numpy as np
 import torch
 
-from shm3d.config import SignedHeatOptions
-from shm3d.domains import grid as griddom
-from shm3d.geometry import sources as src_mod
-from shm3d.io.mesh_io import Mesh
-from shm3d.utils import diskcache
+from ..config import SignedHeatOptions
+from ..domains import grid as griddom
+from ..geometry import sources as src_mod
+from ..io.mesh_io import Mesh
+from ..utils import diskcache
 
-from .._device import resolve_device, torch_dtype
+from .._device import resolve_device, synchronize, torch_dtype
+from .._inputs import check_inputs
 from ..ops import farfield, stencil
 from ..ops.yukawa import yukawa_field
 from ..solve import krylov, multigrid, projection
@@ -41,6 +52,10 @@ from ..utils.timing import PhaseTimer
 # its own so the two packages never read each other's entries
 _CACHE_NS = ("grid_torch", "g2")
 _SHELL_CACHE_NS = ("grid_torch_shell",)
+
+# copied from shm3d/solvers/grid.py: above this many grid nodes the float32
+# solve is returned without the float64 defect correction
+REFINE_MAX_NODES = 100_000_000
 
 
 class GridResult:
@@ -120,6 +135,71 @@ def _mean_shift(phi, src_nodes8, src_coeffs8, weights):
     return phi - (weights * vals).sum() / weights.sum()
 
 
+# copied from shm3d/solvers/grid.py (_laplacian_apply_np, _div64_np): the
+# host float64 mirrors of the device stencils for refine_mode="host"
+def _laplacian_apply_np(u3: np.ndarray, cell: float) -> np.ndarray:
+    acc = -6.0 * u3
+    for axis in range(3):
+
+        def shift(arr, d):
+            pad = [(0, 0)] * 3
+            pad[axis] = (1, 0) if d < 0 else (0, 1)
+            padded = np.pad(arr, pad, mode="edge")
+            sl = [slice(None)] * 3
+            sl[axis] = slice(1, None) if d > 0 else slice(0, -1)
+            return padded[tuple(sl)]
+
+        acc = acc + shift(u3, +1) + shift(u3, -1)
+    return acc / (cell * cell)
+
+
+def _div64_np(Y64: np.ndarray, cell: float) -> np.ndarray:
+    """NumPy f64 adjoint divergence."""
+    shape = Y64.shape[:3]
+    out = np.zeros(shape)
+    comp_axis = {0: 2, 1: 1, 2: 0}
+    for comp in range(3):
+        axis = comp_axis[comp]
+        g = Y64[..., comp] / cell
+        n = shape[axis]
+        sl = lambda a, b: tuple(
+            slice(a, b) if ax == axis else slice(None) for ax in range(3)
+        )
+        # adjoint of: out[i] = u[i+1] - u[i] (i < n-1); out[n-1] = u[n-1] - u[n-2]
+        acc = np.zeros(shape)
+        sub = np.zeros(shape)
+        acc[sl(1, n)] += g[sl(0, n - 1)]
+        sub[sl(0, n - 1)] += g[sl(0, n - 1)]
+        acc[sl(n - 1, n)] += g[sl(n - 1, n)]
+        sub[sl(n - 2, n - 1)] += g[sl(n - 1, n)]
+        out += acc - sub
+    return out.reshape(-1)
+
+
+def project_f64(v: torch.Tensor, nodes8: torch.Tensor, coeffs8_64: torch.Tensor,
+                gram_lu) -> torch.Tensor:
+    """Exact float64 P v for a float64 vector on its device: A v and
+    A^T z there, the (m,) Gram solve z = (A A^T)^{-1} A v on the host with
+    the splu factor (the only crossing: two (m,) vectors)."""
+    a = projection.a_apply(v, nodes8, coeffs8_64).cpu().numpy()
+    z = torch.as_tensor(gram_lu.solve(a), device=v.device)
+    return v - projection.at_apply(z, nodes8, coeffs8_64, v.shape[0])
+
+
+def defect_f64(u: torch.Tensor, b: torch.Tensor, nodes8: torch.Tensor,
+               coeffs8_64: torch.Tensor, gram_lu, cell: float, shape) -> torch.Tensor:
+    """P (b - H u) in float64 on the device (H = -L, so b - H u = b + L u)."""
+    r = b + stencil.laplacian_apply(u.reshape(shape), cell).reshape(-1)
+    return project_f64(r, nodes8, coeffs8_64, gram_lu)
+
+
+def defect_host(u64: np.ndarray, b64: np.ndarray, A, gram_lu, cell: float,
+                shape) -> np.ndarray:
+    """P (b - H u) in host NumPy float64 (the JAX package's host mode)."""
+    Hu = -_laplacian_apply_np(u64.reshape(shape), cell).reshape(-1)
+    return projection.host_project(b64 - Hu, A, gram_lu)
+
+
 def _check_options(options: SignedHeatOptions) -> None:
     if options.fast_integration:
         raise NotImplementedError(
@@ -130,10 +210,6 @@ def _check_options(options: SignedHeatOptions) -> None:
             f"solver_method={options.solver_method!r} is not ported: the "
             "port runs projected_cg and leaves the MINRES-on-KKT comparison "
             "path behind (ROADMAP, 'What the port leaves behind')")
-    if options.refine_steps > 0 and options.dtype == "float32":
-        raise NotImplementedError(
-            "refine_steps > 0 (float64 defect correction of the float32 "
-            "solve) is not ported yet (ROADMAP A11); pass refine_steps=0")
 
 
 def cached_from_arrays(arrays: dict, device, dtype: torch.dtype) -> dict:
@@ -164,6 +240,9 @@ def cached_from_arrays(arrays: dict, device, dtype: torch.dtype) -> dict:
         spacing=float(arrays["spacing"]),
         nodes8=dev(arrays["nodes8"], torch.int64),
         coeffs8=dev(arrays["coeffs8"], dtype),
+        # host copies for the float64 defect correction
+        nodes8_host=np.asarray(arrays["nodes8"]),
+        coeffs8_f64=np.asarray(arrays["coeffs8"], np.float64),
         gram=projection.gram_from_arrays(gram_arrays, device, dtype),
         src_nodes8=dev(arrays["src_nodes8"], torch.int64),
         src_coeffs8=dev(arrays["src_coeffs8"], dtype),
@@ -187,6 +266,7 @@ class GridSolver:
         self.last_stats = {}
 
     def compute_distance(self, geom, options: SignedHeatOptions = SignedHeatOptions()) -> GridResult:
+        check_inputs(geom, options)
         _check_options(options)
         dtype = torch_dtype(options.dtype)
         tm = PhaseTimer(self.device, verbose=options.verbose)
@@ -250,6 +330,9 @@ class GridSolver:
             self.last_stats["iters"] = iters
             self.last_stats["rel_res"] = resid
 
+        if options.refine_steps > 0 and dtype == torch.float32:
+            u = self._refine_or_skip(u, Y, cached, grid, is_mesh, options, tm)
+
         with tm.phase("mean shift along source"):
             phi = _mean_shift(-u, cached["src_nodes8"], cached["src_coeffs8"],
                               cached["weights"])
@@ -260,6 +343,166 @@ class GridSolver:
             self.last_stats["mem_peak_mb"] = (
                 torch.cuda.max_memory_allocated(self.device) / 1e6)
         return GridResult(phi, grid, Y, u_dev=u)
+
+    def _refine_or_skip(self, u, Y, cached, grid, is_mesh, options, tm):
+        """The default tier's dispatch: the float64 defect correction of the
+        float32 solve, or the float32 solution with ``refine_skipped``
+        recorded (above REFINE_MAX_NODES, or once the correction has run
+        out of device memory for this discretization; recorded on every
+        solve it skips)."""
+        if grid.total_nodes > REFINE_MAX_NODES:
+            self.last_stats["refine_skipped"] = (
+                f"grid {grid.total_nodes:,} nodes > REFINE_MAX_NODES")
+            tm.note("refinement skipped: grid too large for the f64 defect "
+                    "correction (f32 solution, rel_res ~1e-5)")
+            return u
+        if not cached.get("_refine_oom"):
+            with tm.phase("float64 defect correction"):
+                try:
+                    return self._refine(u, Y, cached, grid, is_mesh, options, tm)
+                except torch.cuda.OutOfMemoryError:
+                    cached["_refine_oom"] = True
+        self.last_stats["refine_skipped"] = "device OOM"
+        tm.note("refinement skipped: device memory exhausted at this grid "
+                "size; returning the f32 solution")
+        warnings.warn(
+            "shm3d_torch: f64 defect correction exhausted device memory at "
+            "this grid size; returning the f32 fast-tier solution (rel_res "
+            "~1e-5)")
+        return u
+
+    def _host_gram(self, cached, grid):
+        """(A, splu(A A^T)) of all constraint rows, cached per
+        discretization."""
+        host = cached.get("host_gram")
+        if host is None:
+            host = projection.host_gram_factor(
+                cached["nodes8_host"], cached["coeffs8_f64"], grid.total_nodes)
+            cached["host_gram"] = host
+        return host
+
+    def _refine(self, u, Y, cached, grid, is_mesh, options, tm):
+        """Defect correction around the float32 solve (shm3d's ``_refine``
+        and ``_refine_pair``).  Each pass solves the scaled projected defect
+        in float32 and adds it to the float64 iterate, which is then
+        re-projected onto ker(A) exactly.  The pass budget comes from the
+        starting residual (``options.refine_pass_budget``); the loop stops
+        at ``refine_target`` or when a pass contracts the defect less than
+        2x.  Returns u in the compute dtype."""
+        shape = grid.shape
+        cell = float(grid.cell_size)
+        A, lu = self._host_gram(cached, grid)
+        rels = self.last_stats.setdefault("refine_pass_rels", [])
+        tiny = float(np.finfo(np.float64).tiny)
+        pair = options.refine_mode == "pair"
+        if pair:
+            # native float64 on the device: b, A u, A^T z and b - H u;
+            # only the (m,) Gram solve crosses to the host
+            nodes8 = cached["nodes8"]
+            c64 = cached.get("coeffs8_dev64")
+            if c64 is None:
+                c64 = torch.as_tensor(cached["coeffs8_f64"], device=u.device)
+                cached["coeffs8_dev64"] = c64
+            detail = self.last_stats.setdefault(
+                "refine_detail", {"project_s": 0.0, "correction_s": 0.0})
+
+            def timed(fn, key):
+                def run(*args):
+                    t0 = time.perf_counter()
+                    out = fn(*args)
+                    synchronize(u.device)
+                    detail[key] += time.perf_counter() - t0
+                    return out
+                return run
+
+            project = timed(lambda v: project_f64(v, nodes8, c64, lu), "project_s")
+            defect = timed(lambda v: defect_f64(v, b, nodes8, c64, lu, cell, shape),
+                           "project_s")
+            correct = timed(lambda r, rel: self._correction_solve(
+                r.to(u.dtype), cached, grid, options, rel=rel), "correction_s")
+            b = -_rhs_div(Y.to(torch.float64), cell, shape, is_mesh)
+            norm = lambda v: float(torch.linalg.vector_norm(v))
+            absmax = lambda v: float(v.abs().max())
+            widen = lambda d: d.to(torch.float64)
+            record = lambda rel: float("%.3e" % rel)
+            x = u.to(torch.float64)
+        else:
+            # host NumPy float64 throughout
+            Y64 = Y.detach().cpu().numpy().astype(np.float64).reshape(*shape, 3)
+            div64 = _div64_np(Y64, cell)
+            if is_mesh:
+                div64 = np.where(np.isfinite(div64), div64, 0.0)
+            b = -div64
+            project = lambda v: projection.host_project(v, A, lu)
+            defect = lambda v: defect_host(v, b, A, lu, cell, shape)
+            correct = lambda r, rel: self._correction_solve(
+                torch.as_tensor(r, dtype=u.dtype, device=u.device), cached, grid,
+                options, rel=rel)
+            norm = lambda v: float(np.linalg.norm(v))
+            absmax = lambda v: float(np.abs(v).max())
+            widen = lambda d: d.detach().cpu().numpy().astype(np.float64)
+            record = float
+            x = u.detach().cpu().numpy().astype(np.float64)
+
+        bnorm = max(norm(project(b)), tiny)
+        x = project(x)  # restore A u = 0 before measuring the defect
+        r = defect(x)
+        rel = norm(r) / bnorm
+        rels.append(record(rel))
+        for _ in range(options.refine_pass_budget(rel)):
+            if not np.isfinite(rel) or rel <= options.refine_target:
+                tm.note(f"refine skipped/stopped at rel_res={rel:.2e}")
+                break
+            scale = absmax(r)
+            scale = scale if scale > 0 else 1.0
+            x = project(x + scale * widen(correct(r / scale, rel)))
+            r = defect(x)
+            new_rel = norm(r) / bnorm
+            rels.append(record(new_rel))
+            stalled = not np.isfinite(new_rel) or new_rel > 0.5 * rel
+            rel = new_rel if np.isfinite(new_rel) else rel
+            if stalled:
+                break
+        self.last_stats["refine_rel_res"] = float(rel)
+        return torch.as_tensor(x, device=u.device).to(u.dtype)
+
+    # copied from shm3d/solvers/grid.py (_correction_tol)
+    @staticmethod
+    def _correction_tol(options, rel=None, exact_projector=True) -> float:
+        """Per-pass tolerance for a float32 correction solve: aimed at the
+        remaining contraction refine_target / rel, rounded up to a decade,
+        within [1e-5, refine_solver_tol].  The whitened full-row factor
+        (tmat) contracts ~1e-2 per pass whatever the tolerance, so it takes
+        refine_solver_tol (exact_projector=False)."""
+        hi = options.refine_solver_tol
+        if not exact_projector:
+            return hi
+        lo = 1e-5  # f32 Krylov floor (resolved_solver_tol)
+        if rel is None or not np.isfinite(rel) or rel <= 0:
+            return hi
+        needed = options.refine_target / rel
+        return float(min(max(10.0 ** np.ceil(np.log10(max(needed, lo))), lo),
+                         hi))
+
+    def _correction_solve(self, rhs: torch.Tensor, cached, grid, options,
+                          rel=None) -> torch.Tensor:
+        """Projected MG-PCG on the (scaled) defect in float32: the primary
+        solve's operator, projector and pin masks with a loose per-pass
+        tolerance (``_correction_tol``).  Records ``correction_iters``."""
+        if cached.get("pin_keep") is not None:
+            raise NotImplementedError(
+                "the defect correction of a subsampled-pin solve projects "
+                "with the full row set through the host-projected loop, not "
+                "ported yet (ROADMAP A10)")
+        gram = cached["gram"]
+        du, iters, _ = _solve_pinned(
+            rhs, cached["nodes8"], cached["coeffs8"], gram,
+            float(grid.cell_size), grid.shape,
+            self._correction_tol(options, rel,
+                                 exact_projector=gram.bmat is not None),
+            options.solver_maxiter, pins=cached.get("pin_masks"))
+        self.last_stats.setdefault("correction_iters", []).append(int(iters))
+        return du
 
     def _shell_plan(self, cached, key, lam: float, options) -> farfield.DeviceShellPlan:
         plan_key = ("shell_plan", "v2", lam, options.shell_t,
@@ -328,13 +571,13 @@ class GridSolver:
 
     @staticmethod
     def _sources(geom) -> src_mod.SourceDistribution:
-        """Source quadrature, memoized on the geometry object (the attribute
-        name is shared with shm3d, so one computation serves both)."""
-        cached = getattr(geom, "_shm3d_sources", None)
+        """Source quadrature, memoized on the geometry object under an
+        attribute of the port's own (never the JAX package's memo)."""
+        cached = getattr(geom, "_shm3d_torch_sources", None)
         if cached is None:
             cached = src_mod.from_geometry(geom)
             try:
-                setattr(geom, "_shm3d_sources", cached)
+                setattr(geom, "_shm3d_torch_sources", cached)
             except AttributeError:
                 pass
         return cached

@@ -24,10 +24,10 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from shm3d.config import LevelSetConstraint, SignedHeatOptions
-from shm3d.tet import fem
-from shm3d.tet.mesher import TetMesh
-from shm3d.utils import order
+from ..config import LevelSetConstraint, SignedHeatOptions
+from . import fem
+from .mesher import TetMesh
+from ..utils import order
 
 from .._device import resolve_device, torch_dtype
 from ..solve import amg, ell, krylov, pell
@@ -255,7 +255,8 @@ class CRPath:
       (ZeroSet) AMG hierarchy, as a numpy-leaf tree;
     - ``__init__`` with ``prepared=`` moves that tree to the device;
     - :meth:`from_prepared` does the same for the tree that
-      ``shm3d.tet.cr_solver.CRPath.prepare`` returns.
+      ``shm3d.tet.cr_solver.CRPath.prepare`` returns (read by field name;
+      a JAX-package mesh converts with ``TetMesh.from_fields``).
     """
 
     def __init__(self, mesh: TetMesh, surface_faces: np.ndarray = None,
@@ -294,7 +295,9 @@ class CRPath:
     def from_prepared(cls, mesh: TetMesh, prepared: dict, device) -> "CRPath":
         """A CRPath from the numpy-leaf tree of either package's ``prepare``
         (the JAX package's PagedMat/EllMat/SlicedEll/CSR64/AMGHierarchy
-        leaves are read by field name)."""
+        leaves are read by field name, and so is a JAX-package mesh)."""
+        if not isinstance(mesh, TetMesh):
+            mesh = TetMesh.from_fields(mesh)
         return cls(mesh, device=device, prepared=tree_mod.adopt(prepared))
 
     @staticmethod

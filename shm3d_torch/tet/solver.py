@@ -24,15 +24,16 @@ from typing import Optional
 import numpy as np
 import torch
 
-from shm3d.config import SignedHeatOptions
-from shm3d.geometry import sources as src_mod
-from shm3d.geometry import surface as surf
-from shm3d.io.mesh_io import Mesh
-from shm3d.tet import fem
-from shm3d.tet.mesher import MESHER_VERSION, TetMesh, build_tet_domain
-from shm3d.utils import diskcache, treestore
+from ..config import SignedHeatOptions
+from ..geometry import sources as src_mod
+from ..geometry import surface as surf
+from ..io.mesh_io import Mesh
+from . import fem
+from .mesher import MESHER_VERSION, TetMesh, build_tet_domain
+from ..utils import diskcache, treestore
 
 from .._device import resolve_device, torch_dtype
+from .._inputs import check_inputs
 from ..ops.yukawa import yukawa_field
 from ..solve import ell
 from ..utils import tree as tree_mod
@@ -160,6 +161,7 @@ class SignedHeatTetSolver:
         self.last_stats = {}
 
     def compute_distance(self, geom, options: SignedHeatOptions = SignedHeatOptions()) -> TetResult:
+        check_inputs(geom, options)
         _check_options(geom, options)
         torch_dtype(options.dtype)  # rejects an unknown dtype before meshing
         tm = PhaseTimer(self.device, verbose=options.verbose)

@@ -4,10 +4,9 @@ trees by field name, and a plain form for the on-disk artifact store.
 
 The port's operator types carry the same names and fields as their
 ``shm3d`` counterparts (``EllMat``, ``PagedMat``, ``AMGHierarchy``, ...).
-``shm3d.utils.treestore`` keys its registry by class name, so the port does
-not register its types there (that would shadow the JAX package's in a
-process that imports both); it stores them as tagged dicts instead
-(:func:`to_plain` / :func:`from_plain`).
+They go into the port's own treestore (``shm3d_torch.utils.treestore``) as
+dicts tagged with their class name (:func:`to_plain` / :func:`from_plain`),
+the disk form the port's artifacts have always had.
 """
 
 from __future__ import annotations

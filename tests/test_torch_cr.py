@@ -19,18 +19,19 @@ import numpy as np
 import pytest
 import torch
 
-from shm3d.config import LevelSetConstraint, SignedHeatOptions
-from shm3d.geometry import sources as src_mod
-from shm3d.geometry import surface as surf
-from shm3d.io.mesh_io import PointCloud, read_geometry
 from shm3d.oracle import reference as grid_oracle
 from shm3d.tet import cr_solver as jcr
 from shm3d.tet.solver import SignedHeatTetSolver as JaxTetSolver
 from shm3d_torch import SignedHeatSolver
+from shm3d_torch.config import LevelSetConstraint, SignedHeatOptions
+from shm3d_torch.geometry import sources as src_mod
+from shm3d_torch.geometry import surface as surf
+from shm3d_torch.io.mesh_io import PointCloud, read_geometry
 from shm3d_torch.solve import pell
 from shm3d_torch.tet import cr_solver as tcr
 from test_cr import _conforming_fixture
 from test_torch_amg import assert_tree_close
+from torch_interop import jax_geom, jax_options, jax_tetmesh, port_geom, port_tetmesh
 
 torch.set_num_threads(2)
 
@@ -41,8 +42,10 @@ BUNNY = os.path.join(os.path.dirname(__file__), "data", "bunny_dec.obj")
 @pytest.fixture(scope="module")
 def cube():
     """(tet mesh, source mesh, surface face ids, Step-2 field, MULTIPLE-mode
-    face components, source face areas)."""
+    face components, source face areas), in the port's types; the JAX
+    package's tet mesh of the same arrays is ``jax_tetmesh(tm)``."""
     tm, src_mesh, surf_ids, _ = _conforming_fixture()
+    tm, src_mesh = port_tetmesh(tm), port_geom(src_mesh)
     src = src_mod.from_mesh(src_mesh)
     Y = grid_oracle.diffuse_vector_field(tm.barycenters(), src, 4.0)
     return (tm, src_mesh, surf_ids, Y, surf.connected_components_faces(src_mesh),
@@ -56,7 +59,7 @@ def _rel(a, b):
 def _integrate_both(cube, opts, jpath, tpath):
     _, _, _, Y, comps, areas = cube
     jdt = jnp.float32 if opts.dtype == "float32" else jnp.float64
-    ref = np.asarray(jpath.integrate(jnp.asarray(Y, jdt), opts,
+    ref = np.asarray(jpath.integrate(jnp.asarray(Y, jdt), jax_options(opts),
                                      src_face_components=comps, src_face_areas=areas))
     got = tpath.integrate(torch.as_tensor(Y, dtype=tpath.dtype), opts,
                           src_face_components=comps, src_face_areas=areas)
@@ -68,7 +71,7 @@ def _integrate_both(cube, opts, jpath, tpath):
 def test_cr_modes_match_jax_f64(cube, mode):
     tm, _, surf_ids, *_ = cube
     opts = SignedHeatOptions(dtype="float64", level_set_constraint=mode)
-    jpath = jcr.CRPath(tm, surf_ids, dtype=jnp.float64)
+    jpath = jcr.CRPath(jax_tetmesh(tm), surf_ids, dtype=jnp.float64)
     tpath = tcr.CRPath(tm, surf_ids, dtype=np.float64, device="cpu")
     got, ref = _integrate_both(cube, opts, jpath, tpath)
     assert _rel(got, ref) <= 1e-8
@@ -80,7 +83,7 @@ def test_cr_paged_f32_matches_jax(cube, monkeypatch):
     monkeypatch.setattr(jcr, "PAGED_MIN_NNZ", 1)
     monkeypatch.setattr(tcr, "PAGED_MIN_NNZ", 1)
     opts = SignedHeatOptions(dtype="float32")
-    jpath = jcr.CRPath(tm, surf_ids, dtype=jnp.float32)
+    jpath = jcr.CRPath(jax_tetmesh(tm), surf_ids, dtype=jnp.float32)
     tpath = tcr.CRPath(tm, surf_ids, dtype=np.float32, device="cpu")
     import shm3d.solve.pell as jpell
 
@@ -101,7 +104,7 @@ def test_prepare_and_from_prepared_match_jax(cube, monkeypatch, dtype, paged):
     if paged:
         monkeypatch.setattr(jcr, "PAGED_MIN_NNZ", 1)
         monkeypatch.setattr(tcr, "PAGED_MIN_NNZ", 1)
-    jprep = jcr.CRPath.prepare(tm, surf_ids, np.dtype(dtype))
+    jprep = jcr.CRPath.prepare(jax_tetmesh(tm), surf_ids, np.dtype(dtype))
     tprep = tcr.CRPath.prepare(tm, surf_ids, np.dtype(dtype))
     assert sorted(tprep) == sorted(jprep)
     for k in tprep:
@@ -118,7 +121,8 @@ def test_prepare_and_from_prepared_match_jax(cube, monkeypatch, dtype, paged):
     assert isinstance(tprep["ell"]["L"], pell.PagedMat) == paged
     # the port solves JAX's operators as it solves its own
     opts = SignedHeatOptions(dtype=dtype)
-    tdev = tcr.CRPath.from_prepared(tm, jprep, "cpu")
+    # the JAX package's tree and mesh, read by field name
+    tdev = tcr.CRPath.from_prepared(jax_tetmesh(tm), jprep, "cpu")
     own = tcr.CRPath(tm, device="cpu", prepared=tprep)
     _, _, _, Y, *_ = cube
     a = tdev.integrate(torch.as_tensor(Y, dtype=tdev.dtype), opts)
@@ -130,7 +134,7 @@ def test_facade_bunny_matches_jax_f64():
     geom = read_geometry(BUNNY)
     opts = SignedHeatOptions(dtype="float64", disk_cache=False)
     jsolver = JaxTetSolver()
-    ref = jsolver.compute_distance(geom, opts)
+    ref = jsolver.compute_distance(jax_geom(geom), jax_options(opts))
     solver = SignedHeatSolver("tet", device="cpu")
     res = solver.compute_distance(geom, opts)
     assert res.mesh.conforming and res.mesh.n_faces == 55622
@@ -155,7 +159,8 @@ def test_facade_disk_cache_roundtrip(cube, tmp_path, monkeypatch):
     assert any(p.name.startswith("tree_") for p in tmp_path.iterdir())
     rb = SignedHeatSolver("tet", device="cpu").compute_distance(src_mesh, opts)
     np.testing.assert_array_equal(ra.phi, rb.phi)
-    ref = JaxTetSolver().compute_distance(src_mesh, opts.with_(disk_cache=False))
+    ref = JaxTetSolver().compute_distance(jax_geom(src_mesh),
+                                          jax_options(opts.with_(disk_cache=False)))
     assert _rel(ra.phi, ref.phi) <= 1e-8
 
 

@@ -15,9 +15,8 @@ import scipy.sparse as sp
 import torch
 
 from shm3d.solve import pell as jpell
-from shm3d.utils import treestore
 from shm3d_torch.solve import ell, pell
-from shm3d_torch.utils import tree
+from shm3d_torch.utils import tree, treestore
 
 torch.set_num_threads(2)
 
@@ -131,14 +130,13 @@ def test_apply_dispatches_on_operator_type():
 
 
 def test_disk_form_roundtrip(tmp_path, monkeypatch):
-    """The port's types go through shm3d's treestore as tagged dicts,
-    without touching its class registry."""
+    """The port's types go through the port's own treestore as tagged
+    dicts, without touching its class registry."""
     monkeypatch.setenv("SHM3D_CACHE_DIR", str(tmp_path))
     rng = np.random.default_rng(5)
     A = _rand_csr(rng, 3000, 2000, 9000)
     P = pell.build_paged(A, np.float32)
-    assert "PagedMat" not in treestore._REGISTRY or \
-        treestore._REGISTRY["PagedMat"] is jpell.PagedMat
+    assert "PagedMat" not in treestore._REGISTRY
     treestore.save_tree(("pelltest_torch",), tree.to_plain(dict(P=P)))
     P2 = tree.from_plain(treestore.load_tree(("pelltest_torch",)))["P"]
     assert isinstance(P2, pell.PagedMat) and P2.nnz == P.nnz

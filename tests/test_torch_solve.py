@@ -11,12 +11,12 @@ import numpy as np
 import pytest
 import torch
 
-from shm3d.domains import grid as griddom
-from shm3d.geometry import sources as src_mod
-from shm3d.geometry.procedural import make_icosphere
 from shm3d.solve import krylov as jkrylov
 from shm3d.solve import multigrid as jmg
 from shm3d.solve import projection as jproj
+from shm3d_torch.domains import grid as griddom
+from shm3d_torch.geometry import sources as src_mod
+from shm3d_torch.geometry.procedural import make_icosphere
 from shm3d_torch.solve import krylov, multigrid, projection
 
 torch.set_num_threads(2)

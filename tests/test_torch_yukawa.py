@@ -13,12 +13,13 @@ import numpy as np
 import pytest
 import torch
 
-from shm3d.domains import grid as griddom
-from shm3d.geometry import sources as src_mod
-from shm3d.geometry.procedural import make_icosphere
-from shm3d.io.mesh_io import PointCloud
+from shm3d.domains import grid as jgriddom
 from shm3d.ops import farfield as jfarfield
 from shm3d.ops.yukawa import yukawa_field_pallas, yukawa_field_xla
+from shm3d_torch.domains import grid as griddom
+from shm3d_torch.geometry import sources as src_mod
+from shm3d_torch.geometry.procedural import make_icosphere
+from shm3d_torch.io.mesh_io import PointCloud
 from shm3d_torch.ops import farfield, yukawa
 
 torch.set_num_threads(2)
@@ -124,9 +125,10 @@ def test_shell_field_matches_shm3d_f64():
                        mesh.vertices / np.linalg.norm(mesh.vertices, axis=1, keepdims=True))
     s = src_mod.from_geometry(cloud)
     grid = griddom.build_grid(cloud.positions, 2.0, 1.0)
+    jgrid = jgriddom.build_grid(cloud.positions, 2.0, 1.0)
     # a sharper kernel than the heuristic, so a real far region exists
     lam = 4.0 / s.spacing
-    jplan = jfarfield.build_shell_plan(grid, s.points, lam)
+    jplan = jfarfield.build_shell_plan(jgrid, s.points, lam)
     tplan = farfield.build_shell_plan(grid, s.points, lam)
     for k, a in jplan.arrays().items():
         np.testing.assert_array_equal(tplan.arrays()[k], a, err_msg=k)
