@@ -5,8 +5,10 @@ Run from the repository root:  python3 chip_smoke.py
 
 1. prints the card (nvidia-smi name and power limit);
 2. builds the CUDA kernels from shm3d_torch/csrc with nvcc (sm_90a);
-3. checks the Yukawa kernel against its plain PyTorch version on the card
-   (ragged shapes, a query on a source, far queries with a large lambda);
+3. checks the Yukawa kernel (chunked partial sums and their merge) against
+   its plain PyTorch version on the card (ragged shapes, a query on a
+   source, far queries with a large lambda), printing the source chunks
+   each launch splits into;
 4. drives the main path through the public API: the grid-domain exact
    solve of a 52,290-point oriented sphere cloud on a 128^3 grid
    (h_coef=3), float32, refine_steps=0 -- one cold and three warm solves --
@@ -14,30 +16,36 @@ Run from the repository root:  python3 chip_smoke.py
 5. checks phi (finite, right shape, rel-L2 against the analytic signed
    distance |x| - 1 within 10% of the JAX package's on the same input) and
    the kernel against the plain version on the main path's own shell
-   queries, timing both at the main path's shapes;
-6. checks the paged-ELL SpMV kernel against its plain PyTorch version on
-   the card (random, multiplicity and forced-segment operators);
+   queries and on its whole coarse launch (every row finite and of unit
+   norm, the far ones too), timing both at the main path's shapes;
+6. checks the sliced-ELL SpMV kernel against its plain PyTorch version on
+   the card (the device form of random, multiplicity and forced-segment
+   paged operators, one launch a matvec);
 7. drives the tet path through the public API: tests/data/knot_dec.obj at
    the library's default options (conforming tet domain, Crouzeix-Raviart
-   face solve over the paged face operator, float32 with f64 defect
-   correction) -- one cold and three warm solves -- counting both kernels'
-   launches, checks phi against the JAX package's numbers on the same
-   input, and holds each kernel against its plain version at the tet
-   path's own shapes (the Yukawa kernel at the tet barycenters, the paged
-   kernel on the solve's face operator), timing both, and times the paged
-   kernel against its bounds (padded and useful bytes over the measured
-   memory ceiling) and against one cuSPARSE CSR product of the same
-   operator (a yardstick only);
+   face solve over the face operator, paged on the host and sliced ELL on
+   the card, float32 with f64 defect correction) -- one cold and three warm
+   solves -- counting both kernels' launches, checks phi against the JAX
+   package's numbers on the same input, and holds each kernel against its
+   plain version at the tet path's own shapes (the Yukawa kernel at the tet
+   barycenters, the sliced-ELL kernel on the solve's face operator), timing
+   both, and times the sliced-ELL kernel against its bounds (slot and
+   useful bytes over the measured memory ceiling) and against one cuSPARSE
+   CSR product of the same operator (a yardstick only), with the paged
+   layout's bytes and the upload's conversion time beside them;
 8. drives the grid domain's default tier on the main path's input
    (float32 solve with float64 defect correction, refine_steps=1) -- one
    cold and three warm solves and a reference solve refined to 1e-11 --
    and checks the fast tier's rel-L2 against that reference (<= 1e-5), the
-   correction's residual, and that refinement adds no Yukawa launches;
+   correction's residual, that refinement adds no Yukawa launches, and that
+   the four solves give one phi bit for bit;
 9. the roofline phase: the Yukawa speed-of-light probe (K3) against its
    plain version, then K3 and the Yukawa kernel at bench_kernels.py's three
    shapes and at the main path's two launch shapes, each against the SFU
    bound (two MUFU operations a pair at the card's SM clock), and a 1 GiB
-   float32 triad as the measured memory ceiling.
+   float32 triad as the measured memory ceiling.  K3's time over K1's
+   (``pct_of_skeleton``) is a ratio of two kernels, not a share of a bound,
+   and exceeds 100% where K1 is the faster.
 
 Every kernel's launch count is set to 0 just before the path that runs it
 and read just after.  The last two lines of standard output are a JSON
@@ -66,9 +74,10 @@ H_COEF = 3.0      # 128^3 grid
 JAX_ANALYTIC_REL_L2 = 0.008774947261797708
 ANALYTIC_BAND = 0.10
 # Kernel vs plain version, both float32 on the card.  The sums run in
-# another order (per-pair rescale vs one minimum per query tile), so unit
-# directions differ at the 1e-6 level where |X| does not cancel; the test
-# inputs keep |X| away from cancellation (shell nodes, +z-biased vectors).
+# another order (source chunks merged, a reference moved once a stage, vs
+# one minimum per query tile), so unit directions differ at the 1e-6 level
+# where |X| does not cancel; the test inputs keep |X| away from
+# cancellation (shell nodes, +z-biased vectors).
 DIR_TOL = 1e-4    # max abs error, normalized directions
 RAW_RTOL = 1e-4   # max abs error / max |X|, unnormalized sums
 SAMPLE_ROWS = 65536
@@ -95,9 +104,12 @@ JAX_PROJ_RESIDUAL = 2.707e-10
 PHI_BANDS = dict(min=1e-2, max=1e-4, mean_abs=1e-4, src_mean_abs=1e-4)
 FACE_RESIDUAL_MAX = 1e-3
 PROJ_RESIDUAL_MAX = 1e-8
-# paged-ELL kernel vs plain version, float32 on the card: the same products
-# summed in another order
+# sliced-ELL kernel vs plain version, float32 on the card: the same products
+# summed in the same order, fused in the kernel
 PELL_RTOL = 1e-5               # max abs error / max |y|
+# the same solve with the paged-ELL kernel that the sliced-ELL one replaced:
+# 229 face iterations, final f64 face residual 6.528e-4
+PAGED_FACE_ITERS, PAGED_FACE_RESIDUAL = 229, 6.528e-4
 
 # default tier on the main path's input.  The JAX package on the same input
 # (shm3d.solvers.grid.GridSolver, CPU, JAX x64 off, so float32 solves with
@@ -173,6 +185,45 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def chunks(yk, q, p) -> str:
+    """The source split of the Yukawa kernel's launch on these shapes."""
+    Q, S = int(q.shape[0]), int(p.shape[0])
+    n = yk.yukawa_chunk_len(Q, S, q.device)
+    return f"{-(-S // n)} chunks of {n} sources x {-(-Q // 1024)} query blocks"
+
+
+def profile_solve(label, fn, warm_s, smi, names=("sell_kernel", "yukawa_partial", "yukawa_merge")):
+    """One solve under torch.profiler, after one profiled warm-up (the
+    profiler's own start-up): the device time of its kernels (kernel events
+    only: an operator's row repeats its kernels' time), its wall time, the
+    kernels that took most device time, and the device time of the kernels
+    whose names contain ``names``.  ``warm_s``: the unprofiled warm solve's
+    wall time, which the kernels' time is also held against."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if str(getattr(e, "device_type", "")).endswith("CUDA") and dev_us(e) > 0]
+    total_ms = sum(dev_us(e) for e in kernels) / 1e3
+    kernels.sort(key=dev_us, reverse=True)
+    top = ", ".join(f"{e.key[:40]} {dev_us(e) / 1e3:.1f} ms x{e.count}" for e in kernels[:6])
+    ours = ", ".join(f"{n} {sum(dev_us(e) for e in kernels if n in e.key) / 1e3:.2f} ms "
+                     f"x{sum(e.count for e in kernels if n in e.key)}" for n in names)
+    print(f"  profiled {label}: {total_ms:.1f} ms of kernel time in "
+          f"{sum(e.count for e in kernels)} launches, {wall_ms:.1f} ms of wall time "
+          f"under the profiler (busy {total_ms / wall_ms:.1%}; {total_ms / 1e3 / warm_s:.1%} "
+          f"of the unprofiled warm median {warm_s:.4f} s); {ours}; top: {top} ({smi})")
+
+
 def compare(yk, q, p, v, lam, normalize):
     """(max abs error, kernel output) of kernel vs plain on one input."""
     got = yk.yukawa_field_cuda(q, p, v, lam, normalize=normalize)
@@ -199,7 +250,7 @@ def kernel_cases(yk, dev):
         err, got = compare(yk, t(q), t(p), t(v), 7.5, normalize)
         tol = DIR_TOL if normalize else RAW_RTOL
         print(f"kernel vs plain  ragged Q=5003 S=4099 normalize={normalize}: "
-              f"max err {err:.3e} (tol {tol:g})")
+              f"max err {err:.3e} (tol {tol:g}; {chunks(yk, t(q), t(p))})")
         check(bool(torch.isfinite(got).all()), "ragged case finite")
         check(err <= tol, "ragged case within tolerance")
 
@@ -212,7 +263,7 @@ def kernel_cases(yk, dev):
     check(bool(torch.isfinite(got).all()), "coincident queries finite")
     unit = (torch.linalg.vector_norm(got, dim=1) - 1).abs().max().item()
     print(f"kernel vs plain  coincident Q=257 S=3001: max err {err:.3e} "
-          f"(tol {DIR_TOL:g}), | |Y|-1 | <= {unit:.1e}")
+          f"(tol {DIR_TOL:g}), | |Y|-1 | <= {unit:.1e} ({chunks(yk, on, sp)})")
     check(err <= DIR_TOL and unit <= 1e-5, "coincident case")
 
     far = rng.normal(size=(1000, 3))
@@ -220,25 +271,30 @@ def kernel_cases(yk, dev):
     underflow = float(np.exp(np.float32(-50.0 * 39.0)))
     err, got = compare(yk, far, sp, sv, 50.0, True)
     check(bool(torch.isfinite(got).all()), "far queries finite")
+    unit = (torch.linalg.vector_norm(got, dim=1) - 1).abs().max().item()
     print(f"kernel vs plain  far |q|=40 lam=50 (unscaled exp -> {underflow}): "
-          f"max err {err:.3e} (tol {DIR_TOL:g})")
-    check(err <= DIR_TOL, "far case within tolerance")
+          f"max err {err:.3e} (tol {DIR_TOL:g}), | |Y|-1 | <= {unit:.1e} "
+          f"({chunks(yk, far, sp)})")
+    check(err <= DIR_TOL and unit <= 1e-5, "far case within tolerance, unit rows")
 
 
-def pell_compare(pell, P, x):
-    """(max abs error, max abs error / max |y|) of kernel vs plain."""
-    got = pell.paged_matvec_cuda(P, x)
-    ref = pell.paged_matvec_torch(P, x)
+def sell_compare(pell, S, x):
+    """(max abs error, max abs error / max |y|) of the sliced-ELL kernel vs
+    its plain version; the kernel must launch once."""
+    before = pell.KERNEL_LAUNCHES
+    got = pell.sell_matvec_cuda(S, x)
+    check(pell.KERNEL_LAUNCHES == before + 1, "one sliced-ELL launch a matvec")
+    ref = pell.sell_matvec_torch(S, x)
     torch.cuda.synchronize()
     check(got.shape == ref.shape and bool(torch.isfinite(got).all()),
-          "paged kernel output shape and finiteness")
+          "sliced-ELL kernel output shape and finiteness")
     err = (got - ref).abs().max().item()
     return err, err / max(ref.abs().max().item(), 1e-30)
 
 
-def pell_cases(pell, ell, dev):
-    """Seeded random, multiplicity and forced-segment operators; each
-    checked and printed."""
+def sell_cases(pell, ell, dev):
+    """The device form (sliced ELL) of seeded random, multiplicity and
+    forced-segment paged operators; each checked and printed."""
     import scipy.sparse as sp
 
     rng = np.random.default_rng(2)
@@ -264,20 +320,23 @@ def pell_cases(pell, ell, dev):
             P = pell.build_paged(A, np.float32)
         finally:
             pell._SEG_PASSES = saved
-        Pd = ell.device_put_tree(P, dev)
+        S = ell.device_put_tree(P, dev)
+        check(isinstance(S, pell.SellMat) and S.nnz == A.nnz, f"{name} uploaded as sliced ELL")
         x = torch.as_tensor(rng.standard_normal(A.shape[1]), dtype=torch.float32,
                             device=dev)
-        err, rel = pell_compare(pell, Pd, x)
-        print(f"paged kernel vs plain  {name}: {P.n_passes} passes in "
-              f"{len(P.segs)} segments, max err {err:.3e}, relative {rel:.3e} "
-              f"(tol {PELL_RTOL:g})")
-        check(rel <= PELL_RTOL, f"paged kernel {name} within tolerance")
+        err, rel = sell_compare(pell, S, x)
+        print(f"sliced-ELL kernel vs plain  {name}: {P.n_passes} passes in "
+              f"{len(P.segs)} segments on the host, {S.n_slices} slices of "
+              f"{S.n_slots} slots on the card, max err {err:.3e}, relative "
+              f"{rel:.3e} (tol {PELL_RTOL:g})")
+        check(rel <= PELL_RTOL, f"sliced-ELL kernel {name} within tolerance")
 
 
 def tet_phase(smi, dev, ceiling):
     """The tet path on knot_dec; returns (the Yukawa kernel's tet-path
-    numbers, the paged_matvec entry of the kernels line).  ``ceiling`` is
-    the measured memory rate (bytes/s) the paged kernel is held against."""
+    numbers, the sell_matvec entry of the kernels line).  ``ceiling`` is
+    the measured memory rate (bytes/s) the sliced-ELL kernel is held
+    against."""
     from shm3d_torch.io.mesh_io import read_geometry
     from shm3d_torch import SignedHeatOptions, SignedHeatSolver
     from shm3d_torch.ops import yukawa as yk
@@ -302,13 +361,32 @@ def tet_phase(smi, dev, ceiling):
     L = cr.arrays["L"]
     stats = runs[-1]["stats"]
     warm = [r["s"] for r in runs[1:]]
+    # the host form of the same operator (prepare's build_paged of the
+    # Morton-ordered face operator) and the upload's conversion of it
+    P = pell.build_paged(cr._H, np.float32)
+    t0 = time.perf_counter()
+    P_sell = pell.to_sell(P)
+    convert_s = time.perf_counter() - t0
+    check(np.array_equal(P_sell.cols, L.cols.cpu().numpy())
+          and np.array_equal(P_sell.vals, L.vals.cpu().numpy()),
+          "the solve's face operator is the upload of its paged form")
+    paged_bytes = P.n_passes * pell.PAGE * 8
+    sell_bytes = L.n_slots * 8 + 8 * (L.n_slices + 1)
+    # the CSR stores explicit zeros; neither layout keeps them (the paged
+    # kernel skipped them, the conversion drops them)
+    nonzeros = int(np.count_nonzero(cr._H.data.astype(np.float32)))
     print(f"tet path: knot_dec.obj, {len(geom.faces)} input faces, default "
           f"options (ZERO_SET, CR, float32, refine_steps=1), disk_cache=False")
     print(f"  mesh: {res.mesh.n_vertices} vertices, {res.mesh.n_tets} tets, "
           f"{res.mesh.n_faces} faces, conforming {res.mesh.conforming}")
-    print(f"  face operator: {type(L).__name__}, nnz {L.nnz}, {L.n_passes} passes "
-          f"in {len(L.segs)} segments (JAX package: {JAX_KNOT_PASSES} with its "
-          f"compile-shape padding), amg sizes {stats['amg_sizes']}")
+    print(f"  face operator: nnz {P.nnz} in the CSR, {nonzeros} of them nonzero; "
+          f"{type(L).__name__} on the card with {L.nnz} entries in "
+          f"{L.n_slices} slices, {L.n_slots} slots ({L.nnz / L.n_slots:.1%} "
+          f"filled), {sell_bytes / 1e6:.1f} MB; paged on the host: {P.n_passes} "
+          f"passes in {len(P.segs)} segments (JAX package: {JAX_KNOT_PASSES} with "
+          f"its compile-shape padding), {paged_bytes / 1e6:.1f} MB of values and "
+          f"indices; conversion to sliced ELL {convert_s:.3f} s on the host; amg "
+          f"sizes {stats['amg_sizes']}")
     print(f"  cold solve {runs[0]['s']:.3f} s, mem_peak_mb "
           f"{runs[0]['stats']['mem_peak_mb']:.1f}, phases "
           f"{json.dumps(runs[0]['stats']['phases'])}")
@@ -317,19 +395,24 @@ def tet_phase(smi, dev, ceiling):
           f"phases {json.dumps(stats['phases'])}")
     for k, r in enumerate(runs):
         st = r["stats"]
-        print(f"  solve {k}: {r['s']:.3f} s, paged kernel launches {r['k2']}, "
+        print(f"  solve {k}: {r['s']:.3f} s, sliced-ELL kernel launches {r['k2']}, "
               f"face iters {st['iters']} (chunks {st['chunks']}), f64 residual "
               f"passes {st['refine_pass_rels']}, projection iters {st['proj_iters']}, "
               f"residual passes {st['proj_refine_pass_rels']}")
-    print(f"  kernel launches in the 4 solves: yukawa {k1_launches}, paged {k2_launches}")
+    print(f"  face iterations {stats['iters']}, final f64 face residual "
+          f"{stats['residual']:.3e} (the paged kernel's solve: {PAGED_FACE_ITERS}, "
+          f"{PAGED_FACE_RESIDUAL:.3e}); warm median {statistics.median(warm) / stats['iters'] * 1e3:.2f} "
+          f"ms a face iteration")
+    print(f"  kernel launches in the 4 solves: yukawa {k1_launches}, sliced ELL "
+          f"{k2_launches}")
     check(k1_launches > 0, "the tet path launched the Yukawa kernel")
     check(len({(r["stats"]["iters"], tuple(r["stats"]["refine_pass_rels"]))
                for r in runs}) == 1, "the four tet solves repeat bit for bit")
-    check(all(r["k2"] > 0 for r in runs), "every tet solve launched the paged kernel")
+    check(all(r["k2"] > 0 for r in runs), "every tet solve launched the sliced-ELL kernel")
     check(all(r["stats"]["step3_path"] == "crouzeix-raviart" for r in runs),
           "step 3 took the Crouzeix-Raviart path")
-    check(isinstance(L, pell.PagedMat) and L.nnz == KNOT_L_NNZ,
-          f"face operator paged with nnz {KNOT_L_NNZ}")
+    check(isinstance(L, pell.SellMat) and P.nnz == KNOT_L_NNZ and L.nnz == nonzeros,
+          f"face operator of nnz {KNOT_L_NNZ} in sliced ELL with its {nonzeros} nonzeros")
     check(res.mesh.n_faces == KNOT_FACES, "conforming mesh face count")
 
     phi = res.phi
@@ -371,31 +454,12 @@ def tet_phase(smi, dev, ceiling):
     # the kernel at the solve's own face operator
     x = torch.as_tensor(np.random.default_rng(3).standard_normal(L.n_cols),
                         dtype=torch.float32, device=dev)
-    err, rel = pell_compare(pell, L, x)
-    print(f"paged kernel vs plain  main-path face operator: max err {err:.3e}, "
+    err, rel = sell_compare(pell, L, x)
+    print(f"sliced-ELL kernel vs plain  main-path face operator: max err {err:.3e}, "
           f"relative {rel:.3e} (tol {PELL_RTOL:g})")
-    check(rel <= PELL_RTOL, "paged kernel on the face operator within tolerance")
-    t_kernel = time_ms(lambda: pell.paged_matvec_cuda(L, x), 20)
-    t_plain = time_ms(lambda: pell.paged_matvec_torch(L, x), 3)
-    streamed = sum(int(s.vals.numel()) * 8 for s in L.segs)
-    print(f"  kernel {t_kernel:.3f} ms, plain {t_plain:.3f} ms per face-operator "
-          f"matvec; {streamed / 1e9:.3f} GB of values and indices streamed "
-          f"({streamed / t_kernel / 1e6:.0f} GB/s by the kernel; {smi})")
-    per_solve = [r["k2"] for r in runs]
-    print(f"  paged launches per solve {per_solve}; per face CG iteration "
-          f"{per_solve[-1] / max(stats['iters'], 1):.2f}")
+    check(rel <= PELL_RTOL, "sliced-ELL kernel on the face operator within tolerance")
+    t_plain = time_ms(lambda: pell.sell_matvec_torch(L, x), 5)
 
-    # bounds: the bytes of the paged layout (every slot of every pass) and
-    # the bytes the product needs (each nonzero's value and column once,
-    # x and y once), over the published rate and the measured ceiling
-    xy = 4 * (L.n_cols + L.n_rows)
-    padded, useful = streamed + xy, 8 * L.nnz + xy
-    bound_ms = useful / HBM_BYTES_S * 1e3
-    for name, nbytes in (("padded", padded), ("useful", useful)):
-        print(f"  paged kernel vs {name} bytes {nbytes / 1e9:.4f} GB: "
-              f"{nbytes / ceiling * 1e3:.4f} ms at the measured ceiling "
-              f"({nbytes / ceiling * 1e3 / t_kernel:.1%} of the kernel's time), "
-              f"{nbytes / HBM_BYTES_S * 1e3:.4f} ms at 3.35 TB/s")
     # the one library call that computes the same y = L x: cuSPARSE CSR SpMV
     H = cr._H
     Acsr = torch.sparse_csr_tensor(
@@ -403,18 +467,46 @@ def tet_phase(smi, dev, ceiling):
         torch.as_tensor(H.indices, dtype=torch.int32, device=dev),
         torch.as_tensor(H.data, dtype=torch.float32, device=dev), size=H.shape)
     y_lib = Acsr @ x
-    y_ref = pell.paged_matvec_torch(L, x)
+    y_ref = pell.sell_matvec_torch(L, x)
     lib_rel = ((y_lib - y_ref).abs().max() / y_ref.abs().max()).item()
-    t_lib = time_ms(lambda: Acsr @ x, 20)
+    # turns: kernel, library, library, kernel
+    t_k, t_l = [], []
+    for _ in range(2):
+        t_k.append(time_ms(lambda: pell.sell_matvec_cuda(L, x), 50))
+        t_l.append(time_ms(lambda: Acsr @ x, 50))
+        t_l.append(time_ms(lambda: Acsr @ x, 50))
+        t_k.append(time_ms(lambda: pell.sell_matvec_cuda(L, x), 50))
+    t_kernel, t_lib = statistics.median(t_k), statistics.median(t_l)
     print(f"  cuSPARSE CSR SpMV of the same operator (yardstick, not on any "
-          f"path): {t_lib:.4f} ms, relative difference {lib_rel:.2e}; the paged "
-          f"kernel at {t_kernel / t_lib:.2f}x its time ({smi})")
+          f"path): {t_lib:.4f} ms (turns {[round(t, 4) for t in t_l]}), relative "
+          f"difference {lib_rel:.2e}; the sliced-ELL kernel {t_kernel:.4f} ms (turns "
+          f"{[round(t, 4) for t in t_k]}), {t_kernel / t_lib:.2f}x the library's "
+          f"time; plain {t_plain:.3f} ms ({smi})")
     check(lib_rel <= PELL_RTOL, "cuSPARSE product agrees with the plain version")
+    per_solve = [r["k2"] for r in runs]
+    print(f"  sliced-ELL launches per solve {per_solve}; per face CG iteration "
+          f"{per_solve[-1] / max(stats['iters'], 1):.2f}; {per_solve[-1] * t_kernel:.1f} "
+          f"ms of kernel time per solve if every launch took the face operator's")
+    # bounds: the bytes the product needs (each nonzero's value and column
+    # once, x and y once; the kernel's bound), the same counted over the
+    # CSR's stored entries, the sliced layout's (every slot) and the paged
+    # layout's, over the measured ceiling and the published rate
+    xy = 4 * (L.n_cols + L.n_rows)
+    useful = 8 * nonzeros + xy
+    bound_ms = useful / HBM_BYTES_S * 1e3
+    for name, nbytes in (("useful", useful), ("stored-nnz", 8 * P.nnz + xy),
+                         ("slot", sell_bytes + xy), ("paged-layout", paged_bytes + xy)):
+        at_ceiling, at_peak = nbytes / ceiling * 1e3, nbytes / HBM_BYTES_S * 1e3
+        print(f"  {name} bytes {nbytes / 1e9:.4f} GB: {at_ceiling:.4f} ms at the "
+              f"measured ceiling ({at_ceiling / t_kernel:.1%} of the kernel's time), "
+              f"{at_peak:.4f} ms at 3.35 TB/s ({at_peak / t_kernel:.1%})")
+    profile_solve("warm tet solve", lambda: solver.compute_distance(geom, opts),
+                  statistics.median(warm), smi)
     k1 = dict(launches=k1_launches, max_abs_err=k1_err, ms=k1_ms, plain_ms=k1_plain_ms,
               pairs=int(q.shape[0]) * int(pts.shape[0]), queries=int(q.shape[0]),
               sources=int(pts.shape[0]))
     return k1, {
-        "name": "paged_matvec",
+        "name": "sell_matvec",
         "route": "cuda",
         "source": "shm3d_torch/csrc/pell.cu",
         "replaces": "shm3d/solve/pell.py:335",
@@ -479,8 +571,10 @@ def default_tier_phase(solver, geom, opts, phi_fast, yk, smi):
           f"package, same input: {JAX_REL_L2_FAST_TIER:.6e})")
     print(f"  rel_l2_default_tier {rel_default:.6e} (JAX package, same input: "
           f"{JAX_REL_L2_DEFAULT_TIER:.6e}; its passes {JAX_DEFAULT_PASS_RELS})")
+    distinct = len({r["phi"] for r in runs})
     print(f"  yukawa kernel launches in the 4 default-tier solves: {k1_default}; "
-          f"distinct phi among them: {len({r['phi'] for r in runs})}")
+          f"distinct phi among them: {distinct}")
+    check(distinct == 1, "the four default-tier solves give one phi bit for bit")
     stats = runs[-1]["stats"]
     check(rel_fast <= FAST_TIER_REL_L2_MAX, "fast tier within 1e-5 of the refined reference")
     check(all("refine_skipped" not in r["stats"] for r in runs)
@@ -569,12 +663,14 @@ def roofline_phase(yk, ys, plan, pts, vecs, lam, sfu, smi, dev):
                    k1_pairs_s=pairs / (k1_ms * 1e-3), k3_pairs_s=pairs / (k3_ms * 1e-3),
                    k1_pct_sfu=100.0 * pairs / (k1_ms * 1e-3) / sfu,
                    k3_pct_sfu=100.0 * pairs / (k3_ms * 1e-3) / sfu, noise=noise,
-                   within_noise=abs(k1_ms - k3_ms) / k1_ms <= noise)
+                   within_noise=abs(k1_ms - k3_ms) / k1_ms <= noise,
+                   k1_chunks=chunks(yk, q, p))
         rows_out.append(row)
         print(f"  {label} Q={Q} S={S}: yukawa {k1_ms:.3f} ms ({row['k1_pairs_s']:.3e} pairs/s, "
               f"{row['k1_pct_sfu']:.1f}% of SFU), skeleton {k3_ms:.3f} ms "
               f"({row['k3_pairs_s']:.3e} pairs/s, {row['k3_pct_sfu']:.1f}% of SFU); "
-              f"pct_of_skeleton {row['pct_of_skeleton']:.1f}; spread of the turns "
+              f"pct_of_skeleton {row['pct_of_skeleton']:.1f} (K3's time over K1's, a "
+              f"ratio of two kernels, not a share of a bound); spread of the turns "
               f"{noise:.1%}{' -- the two differ by less than the noise' if row['within_noise'] else ''}")
     print("roofline rows: " + json.dumps(rows_out))
     launches = ys.KERNEL_LAUNCHES
@@ -633,7 +729,7 @@ def main() -> int:
           f"build + load {time.perf_counter() - t0:.2f} s "
           f"({_build.library_path().name})")
     for line in _build.BUILD_INFO["log"].splitlines():
-        if "ptxas info" in line and ("Used" in line or "Compiling" in line):
+        if "ptxas info" in line and ("Used" in line or "Compiling" in line) or "spill" in line:
             print(f"  {line.strip()}")
 
     # --- kernel vs plain on synthetic inputs -------------------------------
@@ -705,6 +801,19 @@ def main() -> int:
     print(f"kernel vs plain  main-path shell sample Q={sample.shape[0]} "
           f"S={pts.shape[0]}: max err {err:.3e} (tol {DIR_TOL:g})")
     check(err <= DIR_TOL, "shell sample within tolerance")
+    # the whole coarse launch: its far rows underflow in an unscaled float32
+    # sum (12,099 of them in the speed-of-light probe); here every row must
+    # be finite and of unit norm
+    err_c, got_c = compare(yk, plan.coarse_pos, pts, vecs, lam, True)
+    unit_c = (torch.linalg.vector_norm(got_c, dim=1) - 1).abs().max().item()
+    print(f"kernel vs plain  main-path coarse launch Q={plan.coarse_pos.shape[0]} "
+          f"S={pts.shape[0]}: max err {err_c:.3e} (tol {DIR_TOL:g}), | |Y|-1 | <= "
+          f"{unit_c:.1e}; launches split into {chunks(yk, plan.coarse_pos, pts)} "
+          f"(coarse) and {chunks(yk, plan.shell_pos, pts)} (shell)")
+    check(bool(torch.isfinite(got_c).all()) and unit_c <= 1e-5,
+          "every coarse row finite and of unit norm")
+    check(err_c <= DIR_TOL, "coarse launch within tolerance")
+    err = max(err, err_c)
     times = {}
     for name, fn, reps in (("kernel", yk.yukawa_field_cuda, 5),
                            ("plain", yk.yukawa_field_torch, 2)):
@@ -716,12 +825,14 @@ def main() -> int:
               f"(S={pts.shape[0]}, {smi})")
 
     # --- the default tier, the roofline, the paged kernel, the tet path -----
+    profile_solve("warm fast-tier grid solve", lambda: solver.compute_distance(geom, opts),
+                  statistics.median(warm), smi)
     default_tier_phase(solver, geom, opts, phi, yk, smi)
     check_no_jax_package()
     sfu = sfu_pairs_per_s()
     ceiling = hbm_ceiling(dev, smi)
     k3_entry, _ = roofline_phase(yk, ys, plan, pts, vecs, lam, sfu, smi, dev)
-    pell_cases(pell, ell, dev)
+    sell_cases(pell, ell, dev)
     tet_k1, k2_entry = tet_phase(smi, dev, ceiling)
     check_no_jax_package()
 

@@ -172,21 +172,22 @@ def load_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(so))
     lib.shm3d_yukawa_f32.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int64, ctypes.c_int64, ctypes.c_float, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ]
     lib.shm3d_yukawa_f32.restype = ctypes.c_int
+    lib.shm3d_yukawa_chunk_len.argtypes = [ctypes.c_int64, ctypes.c_int64, ctypes.c_int]
+    lib.shm3d_yukawa_chunk_len.restype = ctypes.c_int64
     lib.shm3d_yukawa_skeleton_f32.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
         ctypes.c_int64, ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
     ]
     lib.shm3d_yukawa_skeleton_f32.restype = ctypes.c_int
-    lib.shm3d_pell_f32.argtypes = [
+    lib.shm3d_sell_f32.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
-        ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p,
     ]
-    lib.shm3d_pell_f32.restype = ctypes.c_int
+    lib.shm3d_sell_f32.restype = ctypes.c_int
     lib.shm3d_cuda_error_string.argtypes = [ctypes.c_int]
     lib.shm3d_cuda_error_string.restype = ctypes.c_char_p
     _LIB = lib

@@ -8,8 +8,12 @@ underflow in float32 (the normalized direction is invariant to exp(-m)).
 
 - ``yukawa_field_torch``: the plain PyTorch version, the same formula as
   ``shm3d.ops.yukawa.yukawa_field_xla``, tiled over queries.
-- ``yukawa_field_cuda``: wrapper of the hand-written Hopper kernel
-  (``shm3d_torch/csrc/yukawa.cu``); float32 CUDA tensors only.
+- ``yukawa_partials_torch`` / ``yukawa_merge_torch``: the plain version of
+  the kernel's split over source chunks (per chunk a reference m_k and the
+  sum relative to it, in log2 units; then the merge in chunk order).
+- ``yukawa_field_cuda``: wrapper of the hand-written Hopper kernels
+  (``shm3d_torch/csrc/yukawa.cu``: the chunked partial sums and their
+  merge); float32 CUDA tensors only.
 - ``yukawa_field``: dispatch on the tensor's device -- CPU tensors take the
   plain version, CUDA tensors launch the kernel or raise.
 """
@@ -24,8 +28,11 @@ import torch
 # underflows to exactly 0 while 3*_FAR^2 stays finite in float32.
 _FAR = 1e17
 
+LOG2E = 1.4426950408889634  # exponents of the chunked form are in log2 units
+
 # Launches of the CUDA kernel in this process (incremented by
-# ``yukawa_field_cuda`` only, once per launch).
+# ``yukawa_field_cuda`` only, once per call; a call launches the partial
+# kernel and its merge).
 KERNEL_LAUNCHES = 0
 
 
@@ -78,6 +85,53 @@ def yukawa_field_torch(
     return out
 
 
+def yukawa_partials_torch(
+    queries: torch.Tensor,
+    src_points: torch.Tensor,
+    src_vectors: torch.Tensor,
+    lam,
+    chunk: int,
+    q_tile: int = 2048,
+) -> torch.Tensor:
+    """Plain PyTorch partial sums over source chunks [k chunk, (k+1) chunk),
+    in the queries' dtype: (C, Q, 4) holding, per chunk and query,
+    m_k = lam log2(e) min r and a_k = sum v exp2(m_k - lam log2(e) r) / r
+    (the kernel's reference moves within a chunk; the sum is the same up to
+    rounding)."""
+    dtype = queries.dtype
+    sp = src_points.to(dtype)
+    sv = src_vectors.to(dtype)
+    lam2 = float(lam) * LOG2E
+    tiny = torch.finfo(dtype).tiny
+    S = sp.shape[0]
+    n_chunks = -(-S // chunk)
+    out = torch.empty((n_chunks, queries.shape[0], 4), dtype=dtype, device=queries.device)
+    for i in range(0, queries.shape[0], q_tile):
+        q = queries[i:i + q_tile]
+        for k in range(n_chunks):
+            p = sp[k * chunk:(k + 1) * chunk]
+            d = q[:, None, :] - p[None, :, :]
+            r2 = torch.clamp_min((d * d).sum(dim=2), tiny)
+            r = torch.sqrt(r2)
+            b = lam2 * r
+            m = torch.amin(b, dim=1, keepdim=True)
+            a = (torch.exp2(m - b) / r) @ sv[k * chunk:(k + 1) * chunk]
+            out[k, i:i + q_tile] = torch.cat([m, a], dim=1)
+    return out
+
+
+def yukawa_merge_torch(partials: torch.Tensor, normalize: bool = True) -> torch.Tensor:
+    """Merge (C, Q, 4) chunk partials in chunk order: m = min m_k,
+    X = sum a_k exp2(m - m_k); returns X / |X| or X exp2(-m), (Q, 3)."""
+    m = partials[..., 0].amin(dim=0)
+    X = torch.zeros_like(partials[0, :, 1:])
+    for k in range(partials.shape[0]):
+        X = X + partials[k, :, 1:] * torch.exp2(m - partials[k, :, 0])[:, None]
+    if normalize:
+        return X / torch.linalg.vector_norm(X, dim=1, keepdim=True)
+    return X * torch.exp2(-m)[:, None]
+
+
 def _check_cuda_f32(name: str, t: torch.Tensor, device: torch.device):
     if t.device != device or t.device.type != "cuda":
         raise ValueError(f"{name}: expected a CUDA tensor on {device}, got {t.device}")
@@ -87,6 +141,22 @@ def _check_cuda_f32(name: str, t: torch.Tensor, device: torch.device):
         raise ValueError(f"{name}: expected shape (N, 3), got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+def _index(device: torch.device) -> int:
+    return device.index if device.index is not None else torch.cuda.current_device()
+
+
+def yukawa_chunk_len(Q: int, S: int, device) -> int:
+    """Sources a chunk of the kernel's split holds for Q queries and S
+    sources on a CUDA ``device`` (a multiple of 256): the split that fills
+    the card (``shm3d_yukawa_chunk_len`` in csrc/yukawa.cu)."""
+    from .._build import load_library
+
+    chunk = load_library().shm3d_yukawa_chunk_len(Q, S, _index(torch.device(device)))
+    if chunk <= 0:
+        raise RuntimeError("yukawa kernel: the device's occupancy query failed")
+    return int(chunk)
 
 
 def yukawa_field_cuda(
@@ -113,6 +183,9 @@ def yukawa_field_cuda(
     from .._build import load_library
 
     lib = load_library()
+    Q, S = queries.shape[0], src_points.shape[0]
+    chunk = yukawa_chunk_len(Q, S, device)
+    part = torch.empty((-(-S // chunk), Q, 4), dtype=torch.float32, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.shm3d_yukawa_f32(
@@ -120,12 +193,13 @@ def yukawa_field_cuda(
             ctypes.c_void_p(src_points.data_ptr()),
             ctypes.c_void_p(src_vectors.data_ptr()),
             ctypes.c_void_p(out.data_ptr()),
-            ctypes.c_int64(queries.shape[0]),
-            ctypes.c_int64(src_points.shape[0]),
-            ctypes.c_float(float(lam)),
+            ctypes.c_void_p(part.data_ptr()),
+            ctypes.c_int64(Q),
+            ctypes.c_int64(S),
+            ctypes.c_int64(chunk),
+            ctypes.c_float(float(lam) * LOG2E),
             ctypes.c_int(1 if normalize else 0),
-            ctypes.c_int(device.index if device.index is not None
-                         else torch.cuda.current_device()),
+            ctypes.c_int(_index(device)),
             ctypes.c_void_p(stream),
         )
     if err != 0:

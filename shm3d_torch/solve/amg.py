@@ -6,8 +6,8 @@ The hierarchy is built on the host with SciPy in f64, as in the JAX package
 with ``default_rng(0)``, smoothed and truncated prolongators, filtered
 Galerkin coarse operators, a dense (pseudo)inverse on the coarsest level.
 It comes back as numpy leaves in their final dtypes; level operators at or
-above ``paged_min_nnz`` are stored paged (solve/pell.py) and width-skewed
-transfer operators sliced (solve/ell.py).
+above ``paged_min_nnz`` are stored paged (solve/pell.py; uploaded as its
+sliced ELL) and width-skewed transfer operators sliced (solve/ell.py).
 
 On the device the preconditioner is a symmetric V-cycle with degree-3
 Chebyshev smoothing over each level's baked [rho/30, 1.1 rho] interval of

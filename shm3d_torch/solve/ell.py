@@ -287,11 +287,25 @@ def to_tensor(a: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
+def _device_form(t):
+    """The device encoding of a host operator node: EllMat tails folded
+    into their panels (:func:`fold_tail`), PagedMat as sliced ELL
+    (``pell.to_sell``), every other node as it is."""
+    from . import pell
+
+    if isinstance(t, EllMat):
+        return fold_tail(t)
+    if isinstance(t, pell.PagedMat):
+        return pell.to_sell(t)
+    return t
+
+
 def device_put_tree(tree, device):
     """Every numpy leaf of ``tree`` (dicts, lists, tuples and the port's
-    operator types) as a tensor of the same dtype on ``device``; EllMat
-    tails are folded into their panels first (:func:`fold_tail`)."""
+    operator types) as a tensor of the same dtype on ``device``, each
+    operator node in its device encoding first (:func:`_device_form`).
+    Every device takes the same encoding, so the CPU runs the layout the
+    card runs, through its plain version."""
     device = torch.device(device)
-    return tree_mod.map_arrays(
-        lambda a: to_tensor(a, device), tree,
-        node=lambda t: fold_tail(t) if isinstance(t, EllMat) else t)
+    return tree_mod.map_arrays(lambda a: to_tensor(a, device), tree,
+                               node=_device_form)

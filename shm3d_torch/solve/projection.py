@@ -38,10 +38,57 @@ def a_apply(u: torch.Tensor, nodes8: torch.Tensor, coeffs8: torch.Tensor) -> tor
     return (u[nodes8] * coeffs8).sum(dim=1)
 
 
-def at_apply(y: torch.Tensor, nodes8: torch.Tensor, coeffs8: torch.Tensor, n: int) -> torch.Tensor:
-    """A^T y: (m,) -> (N,) scatter-add of the row stencils."""
+class AtTable(NamedTuple):
+    """A^T as a gather: each touched node's <= W (row, coefficient) pairs,
+    rows ascending, padded with row 0 and coefficient 0."""
+
+    nodes: torch.Tensor   # (K,) int64 touched nodes, unique
+    rows: torch.Tensor    # (K, W) int64 constraint rows
+    coef: torch.Tensor    # (K, W) coefficients
+
+
+# copied from shm3d/solve/projection.py (build_at_table), without the
+# hi/lo split of the coefficients: the card has native float64
+def build_at_table(nodes8: np.ndarray, coeffs8: np.ndarray):
+    """Transposed constraint table on the host: (at_nodes (K,), at_rows
+    (K, W), at_coef (K, W) float64), K the touched nodes.  The rows are
+    deduplicated cells, so a node appears in at most its 8 cells' rows
+    (W <= 8)."""
+    m, w8 = nodes8.shape
+    flat_nodes = np.asarray(nodes8, np.int64).reshape(-1)
+    flat_rows = np.repeat(np.arange(m, dtype=np.int64), w8)
+    flat_c = np.asarray(coeffs8, np.float64).reshape(-1)
+    order = np.argsort(flat_nodes, kind="stable")
+    sn, sr, sc = flat_nodes[order], flat_rows[order], flat_c[order]
+    at_nodes, starts = np.unique(sn, return_index=True)
+    counts = np.diff(np.append(starts, sn.size))
+    K, W = at_nodes.size, int(counts.max())
+    slot = np.searchsorted(at_nodes, sn)
+    pos = np.arange(sn.size) - starts[slot]
+    at_rows = np.zeros((K, W), np.int64)
+    at_c = np.zeros((K, W), np.float64)
+    at_rows[slot, pos] = sr
+    at_c[slot, pos] = sc
+    return at_nodes, at_rows, at_c
+
+
+def at_table(nodes8: np.ndarray, coeffs8: np.ndarray, device,
+             dtype: torch.dtype) -> AtTable:
+    """The transposed constraint table on ``device``, coefficients in
+    ``dtype``."""
+    at_nodes, at_rows, at_c = build_at_table(nodes8, coeffs8)
+    return AtTable(torch.as_tensor(at_nodes, device=device),
+                   torch.as_tensor(at_rows, device=device),
+                   torch.as_tensor(at_c, device=device).to(dtype))
+
+
+def at_apply(y: torch.Tensor, at: AtTable, n: int) -> torch.Tensor:
+    """A^T y: (m,) -> (N,), a gather over the transposed table written to
+    the touched nodes once each.  No two threads add into one address, so
+    the sums have one order on every device and in every run (a
+    scatter-add through CUDA atomics does not)."""
     out = torch.zeros(n, dtype=y.dtype, device=y.device)
-    return out.index_add_(0, nodes8.reshape(-1), (coeffs8 * y[:, None]).reshape(-1))
+    return out.index_copy_(0, at.nodes, (at.coef * y[at.rows]).sum(dim=1))
 
 
 class GramTable(NamedTuple):
@@ -194,9 +241,10 @@ def gram_from_arrays(arr: dict, device, dtype: torch.dtype) -> GramTable:
     )
 
 
-def make_projector(nodes8: torch.Tensor, coeffs8: torch.Tensor, gram: GramTable, n: int):
+def make_projector(nodes8: torch.Tensor, coeffs8: torch.Tensor, gram: GramTable,
+                   n: int, at: AtTable):
     """P v = v - A^T (A A^T)^{-1} A v through the whitened factor of
-    ``gram`` (``tmat`` or ``bmat``)."""
+    ``gram`` (``tmat`` or ``bmat``); ``at`` is A^T's table for ``tmat``."""
     if gram.tmat is not None:
         T = gram.tmat
 
@@ -207,7 +255,7 @@ def make_projector(nodes8: torch.Tensor, coeffs8: torch.Tensor, gram: GramTable,
             # eps-shifted factor and mops up its float32 rounding
             r = a - gram_apply(z, gram)
             z = z + T.T @ (T @ r)
-            return v - at_apply(z, nodes8, coeffs8, n)
+            return v - at_apply(z, at, n)
 
         return project_t
 

@@ -103,14 +103,14 @@ def _rhs_div(Y: torch.Tensor, cell_size: float, shape, guard_nans: bool) -> torc
     return div
 
 
-def _solve_pinned(b, nodes8, coeffs8, gram, cell_size: float, shape, tol: float,
+def _solve_pinned(b, nodes8, coeffs8, gram, at, cell_size: float, shape, tol: float,
                   maxiter: int, pins=None):
     """Projected MG-PCG on P H P u = P b in one run (no restarts).  Returns
     (u, iterations, relative preconditioned residual) with u in ker(A).
     Both the matvec and the preconditioner project: MG applied to an
     unprojected residual builds wrong search directions."""
     N = b.shape[0]
-    proj = projection.make_projector(nodes8, coeffs8, gram, N)
+    proj = projection.make_projector(nodes8, coeffs8, gram, N, at)
     mg = multigrid.make_node_preconditioner(shape, cell_size, pins=pins)
 
     def matvec(u):
@@ -177,20 +177,22 @@ def _div64_np(Y64: np.ndarray, cell: float) -> np.ndarray:
 
 
 def project_f64(v: torch.Tensor, nodes8: torch.Tensor, coeffs8_64: torch.Tensor,
-                gram_lu) -> torch.Tensor:
+                at64: projection.AtTable, gram_lu) -> torch.Tensor:
     """Exact float64 P v for a float64 vector on its device: A v and
-    A^T z there, the (m,) Gram solve z = (A A^T)^{-1} A v on the host with
-    the splu factor (the only crossing: two (m,) vectors)."""
+    A^T z there (``at64``: A^T's table, float64), the (m,) Gram solve
+    z = (A A^T)^{-1} A v on the host with the splu factor (the only
+    crossing: two (m,) vectors)."""
     a = projection.a_apply(v, nodes8, coeffs8_64).cpu().numpy()
     z = torch.as_tensor(gram_lu.solve(a), device=v.device)
-    return v - projection.at_apply(z, nodes8, coeffs8_64, v.shape[0])
+    return v - projection.at_apply(z, at64, v.shape[0])
 
 
 def defect_f64(u: torch.Tensor, b: torch.Tensor, nodes8: torch.Tensor,
-               coeffs8_64: torch.Tensor, gram_lu, cell: float, shape) -> torch.Tensor:
+               coeffs8_64: torch.Tensor, at64: projection.AtTable, gram_lu,
+               cell: float, shape) -> torch.Tensor:
     """P (b - H u) in float64 on the device (H = -L, so b - H u = b + L u)."""
     r = b + stencil.laplacian_apply(u.reshape(shape), cell).reshape(-1)
-    return project_f64(r, nodes8, coeffs8_64, gram_lu)
+    return project_f64(r, nodes8, coeffs8_64, at64, gram_lu)
 
 
 def defect_host(u64: np.ndarray, b64: np.ndarray, A, gram_lu, cell: float,
@@ -235,14 +237,19 @@ def cached_from_arrays(arrays: dict, device, dtype: torch.dtype) -> dict:
     def dev(a, dt):
         return torch.as_tensor(np.asarray(a), device=device).to(dt)
 
+    nodes8, coeffs8 = np.asarray(arrays["nodes8"]), np.asarray(arrays["coeffs8"], np.float64)
     return dict(
         grid=grid,
         spacing=float(arrays["spacing"]),
-        nodes8=dev(arrays["nodes8"], torch.int64),
-        coeffs8=dev(arrays["coeffs8"], dtype),
+        nodes8=dev(nodes8, torch.int64),
+        coeffs8=dev(coeffs8, dtype),
+        # A^T as a gather table: for the compute dtype's projector and for
+        # the float64 defect correction
+        at=projection.at_table(nodes8, coeffs8, device, dtype),
+        at64=projection.at_table(nodes8, coeffs8, device, torch.float64),
         # host copies for the float64 defect correction
-        nodes8_host=np.asarray(arrays["nodes8"]),
-        coeffs8_f64=np.asarray(arrays["coeffs8"], np.float64),
+        nodes8_host=nodes8,
+        coeffs8_f64=coeffs8,
         gram=projection.gram_from_arrays(gram_arrays, device, dtype),
         src_nodes8=dev(arrays["src_nodes8"], torch.int64),
         src_coeffs8=dev(arrays["src_coeffs8"], dtype),
@@ -324,7 +331,7 @@ class GridSolver:
                 pins = multigrid.build_pin_masks(cached["nodes8"], grid.shape, dtype)
                 cached["pin_masks"] = pins
             u, iters, resid = _solve_pinned(
-                b, cached["nodes8"], cached["coeffs8"], cached["gram"], cell,
+                b, cached["nodes8"], cached["coeffs8"], cached["gram"], cached["at"], cell,
                 grid.shape, tol, options.solver_maxiter, pins=pins)
             tm.note(f"projected_cg iters={iters} rel_res={resid:.2e}")
             self.last_stats["iters"] = iters
@@ -415,8 +422,9 @@ class GridSolver:
                     return out
                 return run
 
-            project = timed(lambda v: project_f64(v, nodes8, c64, lu), "project_s")
-            defect = timed(lambda v: defect_f64(v, b, nodes8, c64, lu, cell, shape),
+            at64 = cached["at64"]
+            project = timed(lambda v: project_f64(v, nodes8, c64, at64, lu), "project_s")
+            defect = timed(lambda v: defect_f64(v, b, nodes8, c64, at64, lu, cell, shape),
                            "project_s")
             correct = timed(lambda r, rel: self._correction_solve(
                 r.to(u.dtype), cached, grid, options, rel=rel), "correction_s")
@@ -496,7 +504,7 @@ class GridSolver:
                 "ported yet (ROADMAP A10)")
         gram = cached["gram"]
         du, iters, _ = _solve_pinned(
-            rhs, cached["nodes8"], cached["coeffs8"], gram,
+            rhs, cached["nodes8"], cached["coeffs8"], gram, cached["at"],
             float(grid.cell_size), grid.shape,
             self._correction_tol(options, rel,
                                  exact_projector=gram.bmat is not None),

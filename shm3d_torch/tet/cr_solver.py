@@ -9,8 +9,9 @@ L2 projection of the face values onto the vertices.
 Host preparation (:meth:`CRPath.prepare`) is the JAX package's code,
 copied: at production sizes (float32, nnz >= PAGED_MIN_NNZ) the face space
 is relabeled by a Morton order on face barycenters and the face operator L
-is stored paged (solve/pell.py), so every L application -- the CG matvec
-and the AMG V-cycle's level-0 smoothing -- runs the paged-ELL kernel.  The
+is stored paged (solve/pell.py) and uploaded as sliced ELL, so every L
+application -- the CG matvec and the AMG V-cycle's level-0 smoothing --
+runs the sliced-ELL kernel.  The
 solves run on the device in the compute dtype, each as one unbounded CG
 (the JAX package's bounded chunks answer the TPU runtime's watchdog), with
 host f64 defect correction (tet/solver._refined_solve).
@@ -416,7 +417,7 @@ class CRPath:
             h = CRPath._build_hierarchy_host(
                 self._H, self._mask64, mode, self.np_dtype,
                 first_P=self._first_P_scipy,
-                paged=isinstance(self.arrays["L"], pell.PagedMat))
+                paged=isinstance(self.arrays["L"], pell.SellMat))
             self._amg_cache[mode] = amg.hierarchy_to_device(h, self.device)
         return self._amg_cache[mode]
 

@@ -152,8 +152,10 @@ def test_hierarchy_device_put_keeps_dtypes(cr_system):
                                  first_P=first_P, paged_min_nnz=1)
     hd = amg.hierarchy_to_device(h, "cpu")
     lvl = hd.levels[1]
-    assert lvl.A.segs[0].vals.dtype == torch.float32
-    assert lvl.A.segs[0].idx.dtype == torch.int32
-    assert lvl.A.segs[0].tile_ptr.dtype == torch.int64
+    # a paged level operator goes to the device as sliced ELL
+    assert isinstance(h.levels[1].A, pell.PagedMat) and isinstance(lvl.A, pell.SellMat)
+    assert lvl.A.vals.dtype == torch.float32
+    assert lvl.A.cols.dtype == torch.int32
+    assert lvl.A.slice_ptr.dtype == torch.int64
     assert lvl.P.cols.dtype == torch.int32 and hd.coarse_inv.dtype == torch.float32
     assert hd.sizes == h.sizes

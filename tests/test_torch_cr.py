@@ -88,9 +88,10 @@ def test_cr_paged_f32_matches_jax(cube, monkeypatch):
     import shm3d.solve.pell as jpell
 
     assert isinstance(jpath.arrays["L"], jpell.PagedMat)
-    assert isinstance(tpath.arrays["L"], pell.PagedMat)
+    # the port's paged operators are on the device as sliced ELL
+    assert isinstance(tpath.arrays["L"], pell.SellMat)
     levels = tpath._hierarchy(LevelSetConstraint.ZERO_SET).levels
-    assert levels[0].A is None and isinstance(levels[1].A, pell.PagedMat)
+    assert levels[0].A is None and isinstance(levels[1].A, pell.SellMat)
     got, ref = _integrate_both(cube, opts, jpath, tpath)
     assert _rel(got, ref) <= 1e-4
     # float32 device solves, refined in f64 on the host

@@ -72,7 +72,8 @@ def test_defect_matches_shm3d_host_pieces(solved, case):
     b_dev = -tgrid._rhs_div(torch.as_tensor(Y), cell, shape, False)
     assert _rel(b_dev.numpy(), b) <= 1e-12
     got_dev = tgrid.defect_f64(torch.as_tensor(u), b_dev, cached["nodes8"],
-                               torch.as_tensor(cached["coeffs8_f64"]), tlu, cell, shape)
+                               torch.as_tensor(cached["coeffs8_f64"]), cached["at64"],
+                               tlu, cell, shape)
     got_host = tgrid.defect_host(u, -tgrid._div64_np(Y.reshape(*shape, 3), cell),
                                  tA, tlu, cell, shape)
     assert got_dev.dtype == torch.float64

@@ -111,8 +111,43 @@ def _projectors(grid, nodes8, coeffs8, arrays):
     jp = jproj.make_projector(jnp.asarray(nodes8, jnp.int32), jnp.asarray(coeffs8), jg, N)
     tg = projection.gram_from_arrays(arrays, "cpu", torch.float64)
     tp = projection.make_projector(torch.from_numpy(nodes8.astype(np.int64)),
-                                   torch.from_numpy(coeffs8), tg, N)
+                                   torch.from_numpy(coeffs8), tg, N,
+                                   projection.at_table(nodes8, coeffs8, "cpu", torch.float64))
     return jp, tp, tg
+
+
+@pytest.mark.parametrize("dtype,rtol", [(torch.float64, 1e-13), (torch.float32, 1e-6)])
+def test_at_apply_matches_shm3d(rows, dtype, rtol):
+    """A^T z as a gather over the transposed table against the JAX
+    package's scatter-add: float64 within 1e-13 and float32 within 1e-6 of
+    max |A^T z| (<= 8 products per node summed in another order); two calls
+    are bitwise equal.  The table holds each touched node once, its rows
+    ascending, and ``build_at_table`` gives the JAX package's rows and
+    coefficients (its hi part is the coefficients rounded to float32)."""
+    grid, nodes8, coeffs8 = rows
+    N = grid.total_nodes
+    z = np.random.default_rng(11).normal(size=nodes8.shape[0])
+    jdt = jnp.float64 if dtype == torch.float64 else jnp.float32
+    ref = np.asarray(jproj.at_apply(jnp.asarray(z, jdt), jnp.asarray(nodes8, jnp.int32),
+                                    jnp.asarray(coeffs8, jdt), N), np.float64)
+    at = projection.at_table(nodes8, coeffs8, "cpu", dtype)
+    zt = torch.as_tensor(z, dtype=dtype)
+    got = projection.at_apply(zt, at, N)
+    assert got.dtype == dtype and got.shape == (N,)
+    assert torch.equal(got, projection.at_apply(zt, at, N))
+    scale = np.abs(ref).max()
+    np.testing.assert_allclose(got.numpy().astype(np.float64), ref, rtol=0, atol=rtol * scale)
+    # every touched node once, each row list ascending
+    nodes = at.nodes.numpy()
+    assert np.array_equal(nodes, np.unique(nodes8))
+    r = at.rows.numpy()
+    filled = at.coef.numpy() != 0
+    assert all(np.all(np.diff(r[k][filled[k]]) > 0) for k in range(r.shape[0]))
+    j_nodes, j_rows, j_hi, _ = jproj.build_at_table(nodes8, coeffs8)
+    at_nodes, at_rows, at_c = projection.build_at_table(nodes8, coeffs8)
+    np.testing.assert_array_equal(at_nodes, j_nodes)
+    np.testing.assert_array_equal(at_rows, j_rows)
+    np.testing.assert_array_equal(at_c.astype(np.float32), j_hi)
 
 
 def test_bmat_projector_matches_shm3d_and_host(rows):

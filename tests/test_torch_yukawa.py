@@ -142,6 +142,59 @@ def test_shell_field_matches_shm3d_f64():
     np.testing.assert_allclose(got, ref, rtol=0, atol=1e-12)
 
 
+@pytest.mark.parametrize("chunk", [1, 7, 32, 80])
+@pytest.mark.parametrize("normalize", [True, False])
+def test_chunked_plain_matches_xla_f64(src, chunk, normalize):
+    """The plain version of the kernel's source split (per-chunk partials in
+    log2 units, merged in chunk order) against ``yukawa_field_xla`` in
+    float64, 1e-12: the same sum regrouped (80 = every source in one
+    chunk)."""
+    pts, vecs = src
+    q = np.random.default_rng(chunk).uniform(-2, 2, size=(130, 3))
+    lam = 3.1
+    part = yukawa.yukawa_partials_torch(_torch(q), _torch(pts), _torch(vecs), lam,
+                                        chunk, q_tile=64)
+    assert part.shape == (-(-pts.shape[0] // chunk), 130, 4)
+    got = yukawa.yukawa_merge_torch(part, normalize=normalize).numpy()
+    ref = np.asarray(yukawa_field_xla(jnp.asarray(q), jnp.asarray(pts),
+                                      jnp.asarray(vecs), lam, q_tile=64,
+                                      normalize=normalize))
+    np.testing.assert_allclose(got, ref, rtol=1e-12, atol=1e-12 * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("case", ["ragged", "coincident", "far"])
+def test_chunked_plain_matches_unchunked_f32(src, case):
+    """float32: the chunked form against the unchunked plain version on the
+    inputs of chip_smoke.py's kernel cases, 1e-5 on unit directions (float32
+    sums regrouped).  Far from every source (|q| = 40, lam = 50) each
+    exp(-lam r) underflows in float32; every row stays finite and of unit
+    norm, as the merge keeps each chunk's nearest sources at weight ~1.
+    There the float32 distances carry ~1e-7 * lam r ~ 2e-4 of exponent
+    noise, and each version lies ~2.5e-5 from the float64 directions: the
+    bound is chip_smoke.py's DIR_TOL, 1e-4."""
+    rng = np.random.default_rng(3)
+    pts, vecs = src
+    lam = {"ragged": 7.5, "coincident": 10.0, "far": 50.0}[case]
+    if case == "ragged":
+        q = rng.uniform(-1, 1, (300, 3))
+        pts = rng.uniform(-1, 1, (411, 3))
+        vecs = rng.normal(size=(411, 3)) * 0.3
+        vecs[:, 2] += 1.0
+    elif case == "coincident":
+        q = pts[:40]
+    else:
+        q = rng.normal(size=(64, 3))
+        q = 40.0 * q / np.linalg.norm(q, axis=1, keepdims=True)
+        assert np.exp(np.float32(-lam * 39.0)) == 0.0
+    args = [_torch(a, torch.float32) for a in (q, pts, vecs)]
+    ref = yukawa.yukawa_field_torch(*args, lam)
+    for chunk in (7, 64):
+        got = yukawa.yukawa_merge_torch(yukawa.yukawa_partials_torch(*args, lam, chunk))
+        assert torch.isfinite(got).all()
+        assert (torch.linalg.vector_norm(got, dim=1) - 1).abs().max() <= 1e-6
+        assert (got - ref).abs().max() <= (1e-4 if case == "far" else 1e-5)
+
+
 def test_cuda_wrapper_refuses_cpu_tensors(src):
     """The kernel wrapper launches only on CUDA tensors; it never falls back
     to the plain version."""
@@ -161,7 +214,9 @@ def test_cuda_kernel_matches_plain(cuda_device, shape, normalize):
     """Kernel vs plain version on the card, float32.  Vectors share a +z
     bias so |X| does not cancel (cond <= ~3); tolerance 1e-5 absolute on
     unit directions, 1e-5 relative unnormalized: float32 sums of up to 5k
-    terms in another order (per-pair rescale vs one minimum per tile)."""
+    terms in another order (chunks merged, a reference moved once a stage,
+    vs one minimum per query tile).  One count a call (the partial kernel
+    and its merge)."""
     nq, ns = shape
     rng = np.random.default_rng(nq + ns)
     q = torch.as_tensor(rng.uniform(-1, 1, (nq, 3)), dtype=torch.float32, device=cuda_device)
@@ -177,3 +232,28 @@ def test_cuda_kernel_matches_plain(cuda_device, shape, normalize):
     err = (got - ref).abs().max().item()
     scale = 1.0 if normalize else ref.abs().max().item()
     assert err <= 1e-5 * scale, err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["coincident", "far"])
+def test_cuda_kernel_far_and_coincident(cuda_device, src, case):
+    """Queries on sources, and queries so far away that every float32
+    exp(-lam r) underflows (|q| = 40, lam = 50; the stage is summed again
+    from a new reference): every row finite and of unit norm, within 1e-4
+    of the plain version (chip_smoke.py's DIR_TOL: float32 distances at
+    |q| = 40 carry ~1e-4 relative weight noise)."""
+    pts, vecs = src
+    rng = np.random.default_rng(12)
+    if case == "coincident":
+        q, lam = pts[:64], 10.0
+    else:
+        q = rng.normal(size=(3000, 3))
+        q, lam = 40.0 * q / np.linalg.norm(q, axis=1, keepdims=True), 50.0
+    args = [torch.as_tensor(np.asarray(a), dtype=torch.float32, device=cuda_device)
+            for a in (q, pts, vecs)]
+    got = yukawa.yukawa_field_cuda(*args, lam)
+    ref = yukawa.yukawa_field_torch(*args, lam)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert (torch.linalg.vector_norm(got, dim=1) - 1).abs().max().item() <= 1e-5
+    assert (got - ref).abs().max().item() <= 1e-4
