@@ -40,12 +40,30 @@ Run from the repository root:  python3 chip_smoke.py
    correction's residual, that refinement adds no Yukawa launches, and that
    the four solves give one phi bit for bit;
 9. the roofline phase: the Yukawa speed-of-light probe (K3) against its
-   plain version, then K3 and the Yukawa kernel at bench_kernels.py's three
-   shapes and at the main path's two launch shapes, each against the SFU
-   bound (two MUFU operations a pair at the card's SM clock), and a 1 GiB
-   float32 triad as the measured memory ceiling.  K3's time over K1's
-   (``pct_of_skeleton``) is a ratio of two kernels, not a share of a bound,
-   and exceeds 100% where K1 is the faster.
+   plain version (the main path's shapes, a ragged case, a case that spans
+   several source chunks, two launches bit for bit), then K3 and the Yukawa
+   kernel at bench_kernels.py's three shapes and at the main path's two
+   launch shapes, each against the SFU bound (two MUFU operations a pair at
+   the card's SM clock), and a 1 GiB float32 triad as the measured memory
+   ceiling.  K3's time over K1's (``pct_of_skeleton``) is a ratio of two
+   kernels, not a share of a bound;
+10. the tet vertex (dual-Laplacian) path through the public API: knot_dec
+    with ``use_crouzeix_raviart=False`` (float32, ZERO_SET, refine_steps=1)
+    -- one cold and three warm solves that must give one phi bit for bit
+    with the sources exactly 0 -- against the JAX package's numbers on the
+    same input, with both kernels' launch counts, the divergence twice bit
+    for bit, one H matvec through the plain gathers of the host form
+    against the sliced-ELL kernel, and warm solves with H on either route;
+11. knot_dec's vertices with area-weighted normals as an oriented point
+    cloud, LevelSetConstraint.NONE (the ``vnull`` deflation): one cold and
+    one warm solve, with the Yukawa kernel held against its plain version at
+    that launch's shape and the sliced-ELL kernel on that solve's own
+    operator (its normals' checksum is held to the reference script's);
+12. greedy integration and the artifact's mode upgrade on bunny_dec with a
+    temporary disk cache: ``fast_integration=True`` first, then a default
+    (Crouzeix-Raviart) solve on the same solver, which must take the "mode
+    upgrade" phase and give the phi of a fresh solve bit for bit, with the
+    Yukawa kernel held against its plain version at bunny_dec's barycenters.
 
 Every kernel's launch count is set to 0 just before the path that runs it
 and read just after.  The last two lines of standard output are a JSON
@@ -110,6 +128,25 @@ PELL_RTOL = 1e-5               # max abs error / max |y|
 # the same solve with the paged-ELL kernel that the sliced-ELL one replaced:
 # 229 face iterations, final f64 face residual 6.528e-4
 PAGED_FACE_ITERS, PAGED_FACE_RESIDUAL = 229, 6.528e-4
+
+# vertex phase: knot_dec with use_crouzeix_raviart=False, and its vertices as
+# a point cloud in NONE mode.  The JAX package on the same inputs
+# (scripts/jax_tet_vertex_reference.py: CPU, JAX x64 off, float32 solves with
+# f64 defect correction): 674 iterations, f64 residual passes 1.932e-5 ->
+# 3.241e-7 -> 1.308e-9 -> 2.611e-7 (its last pass lost ground), phi below
+JAX_VERTEX = dict(min=-9.281331062316895, max=144.6066131591797,
+                  mean_abs=54.88045830828255)
+JAX_VERTEX_RESIDUAL = 2.611042479776801e-07
+JAX_CLOUD = dict(min=-10.806187629699707, max=147.87635803222656,
+                 mean_abs=59.98338588367128, src_mean_abs=1.5110259604260776)
+JAX_CLOUD_VERTICES, JAX_CLOUD_RESIDUAL = 70070, 9.570616500732421e-11
+JAX_CLOUD_NORMALS = 2549.3389745351783   # the script's checksum of the cloud's normals
+# relative bands: both packages end float32 AMG-CG plus f64 correction at or
+# below a 3e-7 residual, in other summation orders, and round phi to float32
+# (6e-8); the single interior minimum moves most, as on the CR path
+VERTEX_BANDS = dict(min=1e-3, max=1e-4, mean_abs=1e-4, src_mean_abs=1e-4)
+VERTEX_RESIDUAL_MAX = 1e-5
+BUNNY = os.path.join(REPO, "tests", "data", "bunny_dec.obj")
 
 # default tier on the main path's input.  The JAX package on the same input
 # (shm3d.solvers.grid.GridSolver, CPU, JAX x64 off, so float32 solves with
@@ -292,6 +329,53 @@ def sell_compare(pell, S, x):
     return err, err / max(ref.abs().max().item(), 1e-30)
 
 
+def sell_csr(pell, S):
+    """The nonzeros of a device SellMat as a torch CSR tensor (int32
+    indices), for the library's product of the same operator."""
+    widths = (S.slice_ptr[1:] - S.slice_ptr[:-1]) // pell.SELL_C
+    first = torch.arange(S.n_slices, device=S.vals.device) * pell.SELL_C
+    lane = torch.arange(S.n_slots, device=S.vals.device) & (pell.SELL_C - 1)
+    rows = torch.repeat_interleave(first, widths * pell.SELL_C) + lane
+    keep = S.vals != 0
+    A = torch.sparse_coo_tensor(torch.stack([rows[keep], S.cols[keep].to(torch.int64)]),
+                                S.vals[keep], size=(S.n_rows, S.n_cols)
+                                ).coalesce().to_sparse_csr()
+    return torch.sparse_csr_tensor(A.crow_indices().to(torch.int32),
+                                   A.col_indices().to(torch.int32), A.values(),
+                                   size=(S.n_rows, S.n_cols))
+
+
+def k2_at(pell, S, seed, smi, what):
+    """The sliced-ELL kernel against its plain version on a path's own
+    device operator; returns its numbers for the kernels line: the error,
+    the kernel's, the plain version's and cuSPARSE's time of one product,
+    and the time its useful bytes take at the published memory rate."""
+    x = torch.as_tensor(np.random.default_rng(seed).standard_normal(S.n_cols),
+                        dtype=torch.float32, device=S.vals.device)
+    err, rel = sell_compare(pell, S, x)
+    check(rel <= PELL_RTOL, f"sliced-ELL kernel on the {what} within tolerance")
+    A = sell_csr(pell, S)
+    y_ref = pell.sell_matvec_torch(S, x)
+    lib_rel = ((A @ x - y_ref).abs().max() / y_ref.abs().max()).item()
+    check(lib_rel <= PELL_RTOL, f"cuSPARSE product of the {what} agrees with the plain version")
+    t_k, t_l = [], []
+    for _ in range(2):  # turns: kernel, library, library, kernel
+        t_k.append(time_ms(lambda: pell.sell_matvec_cuda(S, x), 50))
+        t_l.append(time_ms(lambda: A @ x, 50))
+        t_l.append(time_ms(lambda: A @ x, 50))
+        t_k.append(time_ms(lambda: pell.sell_matvec_cuda(S, x), 50))
+    t_plain = time_ms(lambda: pell.sell_matvec_torch(S, x), 5)
+    nonzeros = int((S.vals != 0).sum())
+    bound_ms = (8 * nonzeros + 4 * (S.n_cols + S.n_rows)) / HBM_BYTES_S * 1e3
+    print(f"sliced-ELL kernel vs plain  {what} ({S.n_rows} rows, {nonzeros} nonzeros in "
+          f"{S.n_slots} slots): max err {err:.3e}, relative {rel:.3e} (tol {PELL_RTOL:g}); "
+          f"kernel {statistics.median(t_k):.4f} ms (turns {[round(t, 4) for t in t_k]}), "
+          f"plain {t_plain:.3f} ms, cuSPARSE CSR {statistics.median(t_l):.4f} ms (turns "
+          f"{[round(t, 4) for t in t_l]}), useful bytes at 3.35 TB/s {bound_ms:.4f} ms ({smi})")
+    return dict(max_abs_err=err, ms=statistics.median(t_k), plain_ms=t_plain,
+                bound_ms=bound_ms, library_ms=statistics.median(t_l))
+
+
 def sell_cases(pell, ell, dev):
     """The device form (sliced ELL) of seeded random, multiplicity and
     forced-segment paged operators; each checked and printed."""
@@ -333,8 +417,8 @@ def sell_cases(pell, ell, dev):
 
 
 def tet_phase(smi, dev, ceiling):
-    """The tet path on knot_dec; returns (the Yukawa kernel's tet-path
-    numbers, the sell_matvec entry of the kernels line).  ``ceiling`` is
+    """The tet path on knot_dec; returns (the Yukawa kernel's, the
+    sliced-ELL kernel's numbers on this path).  ``ceiling`` is
     the measured memory rate (bytes/s) the sliced-ELL kernel is held
     against."""
     from shm3d_torch.io.mesh_io import read_geometry
@@ -505,19 +589,288 @@ def tet_phase(smi, dev, ceiling):
     k1 = dict(launches=k1_launches, max_abs_err=k1_err, ms=k1_ms, plain_ms=k1_plain_ms,
               pairs=int(q.shape[0]) * int(pts.shape[0]), queries=int(q.shape[0]),
               sources=int(pts.shape[0]))
-    return k1, {
-        "name": "sell_matvec",
-        "route": "cuda",
-        "source": "shm3d_torch/csrc/pell.cu",
-        "replaces": "shm3d/solve/pell.py:335",
-        "launches": k2_launches,
-        "max_abs_err": err,
-        "ms": t_kernel,
-        "plain_ms": t_plain,
-        "bound_ms": bound_ms,
-        "bound_by": "bytes",
-        "library_ms": t_lib,
-    }
+    return k1, dict(launches=k2_launches, max_abs_err=err, ms=t_kernel, plain_ms=t_plain,
+                    bound_ms=bound_ms, library_ms=t_lib)
+
+
+def timed_solves(solver, geom, opts, n, yk, pell):
+    """n solves of one input: per solve the wall time, both kernels' launches,
+    the stats and a hash of phi; and the last result."""
+    runs = []
+    for _ in range(n):
+        k1, k2 = yk.KERNEL_LAUNCHES, pell.KERNEL_LAUNCHES
+        t0 = time.perf_counter()
+        res = solver.compute_distance(geom, opts)
+        torch.cuda.synchronize()
+        runs.append(dict(s=time.perf_counter() - t0, k1=yk.KERNEL_LAUNCHES - k1,
+                         k2=pell.KERNEL_LAUNCHES - k2, stats=dict(solver.last_stats),
+                         phi=hashlib.sha1(res.phi.tobytes()).hexdigest()))
+    return runs, res
+
+
+def print_solves(runs):
+    for k, r in enumerate(runs):
+        st = r["stats"]
+        print(f"  solve {k} ({'cold' if k == 0 else 'warm'}): {r['s']:.3f} s, yukawa launches "
+              f"{r['k1']}, sliced-ELL launches {r['k2']}, iters {st['iters']} (chunks "
+              f"{st['chunks']}), f64 residual passes {st['refine_pass_rels']}, "
+              f"mem_peak_mb {st['mem_peak_mb']:.1f}, phases {json.dumps(st['phases'])}")
+
+
+def check_phi_bands(res, ref, what):
+    """phi statistics within VERTEX_BANDS of the JAX package's."""
+    phi = res.phi
+    got = dict(min=float(phi.min()), max=float(phi.max()),
+               mean_abs=float(np.abs(phi).mean()),
+               src_mean_abs=float(np.abs(res.phi_at_sources()).mean()))
+    for name, want in ref.items():
+        off, limit = abs(got[name] - want) / abs(want), VERTEX_BANDS[name]
+        print(f"  phi {name} {got[name]:.6f} (JAX package {want:.6f}): off by "
+              f"{off:.3e} (limit {limit:g})")
+        check(off <= limit, f"{what}: phi {name} within {limit:g} of the JAX package")
+
+
+def k1_at(yk, cached, opts, smi, what):
+    """The Yukawa kernel against its plain version at a tet path's own
+    launch shape; returns its numbers for the kernels line."""
+    q, pts, vecs = cached["barys"], cached["points"], cached["vectors"]
+    lam = float(np.sqrt(1.0 / (opts.t_coef * cached["spacing"] ** 2)))
+    err, _ = compare(yk, q, pts, vecs, lam, True)
+    print(f"kernel vs plain  {what} Q={q.shape[0]} S={pts.shape[0]}: "
+          f"max err {err:.3e} (tol {DIR_TOL:g}; {chunks(yk, q, pts)})")
+    check(err <= DIR_TOL, f"Yukawa kernel at the {what} within tolerance")
+    ms = time_ms(lambda: yk.yukawa_field_cuda(q, pts, vecs, lam), 20)
+    plain_ms = time_ms(lambda: yk.yukawa_field_torch(q, pts, vecs, lam), 3)
+    print(f"  yukawa kernel {ms:.3f} ms, plain {plain_ms:.3f} ms at the {what} "
+          f"(1 launch per solve; {smi})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                pairs=int(q.shape[0]) * int(pts.shape[0]), queries=int(q.shape[0]),
+                sources=int(pts.shape[0]))
+
+
+def vertex_phase(smi, dev):
+    """The tet vertex (dual-Laplacian) path on knot_dec; returns (Yukawa
+    launches of its four solves, the sliced-ELL kernel's numbers on this
+    path's operator with the four solves' launches)."""
+    from shm3d_torch import SignedHeatOptions, SignedHeatSolver
+    from shm3d_torch.io.mesh_io import read_geometry
+    from shm3d_torch.ops import yukawa as yk
+    from shm3d_torch.solve import ell, pell
+    from shm3d_torch.tet.solver import SignedHeatTetSolver, _divergence
+
+    geom = read_geometry(KNOT)
+    opts = SignedHeatOptions(use_crouzeix_raviart=False, disk_cache=False)
+    solver = SignedHeatSolver("tet", device=dev)
+    yk.KERNEL_LAUNCHES = 0
+    pell.KERNEL_LAUNCHES = 0
+    runs, res = timed_solves(solver, geom, opts, 4, yk, pell)
+    k1_launches, k2_launches = yk.KERNEL_LAUNCHES, pell.KERNEL_LAUNCHES
+    cached = next(iter(solver._impl._cache.values()))
+    H = cached["H_ell"]
+    stats = runs[-1]["stats"]
+    warm = [r["s"] for r in runs[1:]]
+    print(f"vertex path: knot_dec.obj, use_crouzeix_raviart=False (ZERO_SET, "
+          f"float32, refine_steps=1), disk_cache=False")
+    print(f"  mesh: {res.mesh.n_vertices} vertices, {res.mesh.n_tets} tets, "
+          f"{res.mesh.n_src} source vertices; S H S: {type(H).__name__} on the card, "
+          f"{H.nnz} entries in {H.n_slices} slices, {H.n_slots} slots "
+          f"({H.nnz / H.n_slots:.1%} filled); amg sizes {stats['amg_sizes']}; level "
+          f"operators {[type(l.A).__name__ for l in cached['amg'][opts.level_set_constraint].levels]}")
+    print_solves(runs)
+    print(f"  warm solves {[round(w, 4) for w in warm]} s, median "
+          f"{statistics.median(warm):.4f} s, {statistics.median(warm) / stats['iters'] * 1e3:.2f} "
+          f"ms an iteration; sliced-ELL launches an iteration "
+          f"{runs[-1]['k2'] / max(stats['iters'], 1):.2f} ({smi})")
+    print(f"  kernel launches in the 4 solves: yukawa {k1_launches}, sliced ELL "
+          f"{k2_launches}; distinct phi {len({r['phi'] for r in runs})}; max |phi| at "
+          f"the sources {np.abs(res.phi_at_sources()).max()}; final f64 residual "
+          f"{stats['residual']:.3e} (limit {VERTEX_RESIDUAL_MAX:g}; JAX package "
+          f"{JAX_VERTEX_RESIDUAL:.3e})")
+    check(all(r["stats"]["step3_path"] == "vertex" for r in runs), "step 3 took the vertex path")
+    check(res.phi.shape == (KNOT_VERTICES,) and bool(np.isfinite(res.phi).all()),
+          "vertex-path phi finite, one value a tet vertex")
+    check(len({r["phi"] for r in runs}) == 1, "the four vertex-path solves give one phi")
+    check(float(np.abs(res.phi_at_sources()).max()) == 0.0, "ZERO_SET sources exactly 0")
+    check(all(r["k1"] == 1 and r["k2"] > 0 for r in runs),
+          "every vertex-path solve launched both kernels")
+    check(isinstance(H, pell.SellMat), "the float32 vertex operator is sliced ELL on the card")
+    check(all(r["stats"]["residual"] <= VERTEX_RESIDUAL_MAX for r in runs), "vertex residual")
+    check_phi_bands(res, JAX_VERTEX, "vertex path")
+
+    # the divergence twice on the solve's own field
+    lam = float(np.sqrt(1.0 / (opts.t_coef * cached["spacing"] ** 2)))
+    Y = yk.yukawa_field(cached["barys"], cached["points"], cached["vectors"], lam)
+    div = [_divergence(Y, cached["div_rows"], cached["div_tets"], cached["div_gvec"],
+                       res.mesh.n_vertices) for _ in range(2)]
+    check(torch.equal(*div), "two divergence calls agree bit for bit")
+    print(f"  divergence: {cached['div_rows'].shape[0]} entries, two calls bitwise equal")
+
+    # one H matvec: the host form's plain gathers against the sliced-ELL kernel
+    _, vdev = SignedHeatTetSolver._build_vertex_ops(res.mesh, np.float32)
+    H_plain = ell.device_put_tree(vdev["H_ell"], dev)
+    k2 = k2_at(pell, H, 4, smi, "vertex path's S H S")
+    k2["launches"] = k2_launches
+    x = torch.as_tensor(np.random.default_rng(4).standard_normal(H.n_cols),
+                        dtype=torch.float32, device=dev)
+    y_plain = pell.apply(H_plain, x)
+    rel_routes = ((y_plain - pell.sell_matvec_torch(H, x)).abs().max()
+                  / y_plain.abs().max()).item()
+    check(rel_routes <= PELL_RTOL, "the two encodings of S H S agree")
+    t_k, t_p = [], []
+    for _ in range(2):  # turns: kernel, plain, plain, kernel
+        t_k.append(time_ms(lambda: pell.sell_matvec_cuda(H, x), 50))
+        t_p.append(time_ms(lambda: pell.apply(H_plain, x), 50))
+        t_p.append(time_ms(lambda: pell.apply(H_plain, x), 50))
+        t_k.append(time_ms(lambda: pell.sell_matvec_cuda(H, x), 50))
+    useful = 8 * H.nnz + 4 * (H.n_cols + H.n_rows)
+    print(f"  H matvec: sliced-ELL kernel {statistics.median(t_k):.4f} ms (turns "
+          f"{[round(t, 4) for t in t_k]}, max err vs plain {k2['max_abs_err']:.3e}), "
+          f"{type(vdev['H_ell']).__name__} through plain gathers "
+          f"{statistics.median(t_p):.4f} ms (turns {[round(t, 4) for t in t_p]}); useful "
+          f"bytes {useful / 1e6:.2f} MB = {useful / HBM_BYTES_S * 1e3:.4f} ms at 3.35 TB/s "
+          f"({smi})")
+    # warm solves with H through the plain gathers, for the routing decision
+    cached["H_ell"] = H_plain
+    plain_runs, plain_res = timed_solves(solver, geom, opts, 3, yk, pell)
+    cached["H_ell"] = H
+    print(f"  warm solves with H through the plain gathers: "
+          f"{[round(r['s'], 4) for r in plain_runs]} s, iters "
+          f"{[r['stats']['iters'] for r in plain_runs]}, sliced-ELL launches "
+          f"{[r['k2'] for r in plain_runs]}, distinct phi "
+          f"{len({r['phi'] for r in plain_runs})}, final residual "
+          f"{plain_runs[-1]['stats']['residual']:.3e}; against the kernel route's "
+          f"{[round(w, 4) for w in warm]} s at {stats['iters']} iters; phi differs by "
+          f"{np.linalg.norm(plain_res.phi - res.phi) / np.linalg.norm(res.phi):.2e}")
+    profile_solve("warm vertex solve", lambda: solver.compute_distance(geom, opts),
+                  statistics.median(warm), smi)
+    return k1_launches, k2
+
+
+def cloud_phase(smi, dev):
+    """knot_dec's vertices as an oriented point cloud, NONE mode; returns
+    (the Yukawa kernel's, the sliced-ELL kernel's numbers at this path's
+    shapes, each with the two solves' launches)."""
+    from shm3d_torch import LevelSetConstraint, SignedHeatOptions, SignedHeatSolver
+    from shm3d_torch.geometry import surface
+    from shm3d_torch.io.mesh_io import PointCloud, read_geometry
+    from shm3d_torch.ops import yukawa as yk
+    from shm3d_torch.solve import pell
+
+    mesh = read_geometry(KNOT)
+    cloud = PointCloud(mesh.vertices.copy(), surface.vertex_normals(mesh))
+    checksum = surface.normals_checksum(cloud.normals)
+    check(abs(checksum - JAX_CLOUD_NORMALS) <= 1e-9 * JAX_CLOUD_NORMALS,
+          f"the point cloud's normals are the reference script's (checksum {checksum!r})")
+    opts = SignedHeatOptions(level_set_constraint=LevelSetConstraint.NONE,
+                             disk_cache=False)
+    solver = SignedHeatSolver("tet", device=dev)
+    yk.KERNEL_LAUNCHES = 0
+    pell.KERNEL_LAUNCHES = 0
+    runs, res = timed_solves(solver, cloud, opts, 2, yk, pell)
+    k1_launches, k2_launches = yk.KERNEL_LAUNCHES, pell.KERNEL_LAUNCHES
+    stats = runs[-1]["stats"]
+    phi = res.phi
+    print(f"point cloud: knot_dec's {cloud.n_points} vertices with area-weighted "
+          f"normals, LevelSetConstraint.NONE (float32, refine_steps=1): "
+          f"{res.mesh.n_vertices} vertices, {res.mesh.n_tets} tets, conforming "
+          f"{res.mesh.conforming}; amg sizes {stats['amg_sizes']}")
+    print_solves(runs)
+    print(f"  phi negative at {float((phi < 0).mean()):.2%} of the vertices; final f64 "
+          f"residual {stats['residual']:.3e} (limit {VERTEX_RESIDUAL_MAX:g}; JAX package "
+          f"{JAX_CLOUD_RESIDUAL:.3e}); distinct phi {len({r['phi'] for r in runs})}; "
+          f"kernel launches: yukawa {k1_launches}, sliced ELL {k2_launches}")
+    check(all(r["stats"]["step3_path"] == "vertex" for r in runs),
+          "the point cloud took the vertex path")
+    check(res.mesh.n_vertices == JAX_CLOUD_VERTICES, "point-cloud tet mesh size")
+    check(bool(np.isfinite(phi).all()) and phi.shape == (res.mesh.n_vertices,),
+          "point-cloud phi finite")
+    check(phi.min() < 0 < phi.max() and float((phi < 0).mean()) < 0.2,
+          "point-cloud phi negative inside, positive in most of the domain")
+    check(len({r["phi"] for r in runs}) == 1, "the two point-cloud solves give one phi")
+    check(all(r["k1"] == 1 and r["k2"] > 0 for r in runs),
+          "every point-cloud solve launched both kernels")
+    check(all(r["stats"]["residual"] <= VERTEX_RESIDUAL_MAX for r in runs),
+          "point-cloud residual")
+    check_phi_bands(res, JAX_CLOUD, "point cloud")
+    cached = next(iter(solver._impl._cache.values()))
+    k1 = k1_at(yk, cached, opts, smi, "point-cloud barycenters")
+    k1["launches"] = k1_launches
+    H = cached["H_ell"]
+    check(isinstance(H, pell.SellMat), "the point cloud's float32 operator is sliced ELL")
+    k2 = k2_at(pell, H, 5, smi, "point cloud's S H S")
+    k2["launches"] = k2_launches
+    return k1, k2
+
+
+def upgrade_phase(smi, dev):
+    """Greedy integration, then the artifact's upgrade to Crouzeix-Raviart,
+    on bunny_dec with a temporary disk cache; returns the Yukawa kernel's
+    numbers at bunny_dec's barycenters with the four solves' launches (the
+    sliced-ELL kernel has no launch here: the face operator is below the
+    size at which it is stored paged)."""
+    import tempfile
+
+    from shm3d_torch import SignedHeatOptions, SignedHeatSolver
+    from shm3d_torch.io.mesh_io import read_geometry
+    from shm3d_torch.ops import yukawa as yk
+    from shm3d_torch.solve import pell
+
+    geom = read_geometry(BUNNY)
+    opts = SignedHeatOptions()
+    yk.KERNEL_LAUNCHES = 0
+    pell.KERNEL_LAUNCHES = 0
+    saved = os.environ.get("SHM3D_CACHE_DIR")
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ["SHM3D_CACHE_DIR"] = tmp
+        try:
+            solver = SignedHeatSolver("tet", device=dev)
+            (greedy,), res_g = timed_solves(solver, geom, opts.with_(fast_integration=True),
+                                            1, yk, pell)
+            (up,), res_up = timed_solves(solver, geom, opts, 1, yk, pell)
+            (loaded,), res_l = timed_solves(SignedHeatSolver("tet", device=dev), geom, opts,
+                                            1, yk, pell)
+            trees = [d for d in os.listdir(tmp) if d.startswith("tree_")]
+        finally:
+            if saved is None:
+                del os.environ["SHM3D_CACHE_DIR"]
+            else:
+                os.environ["SHM3D_CACHE_DIR"] = saved
+    fresh_solver = SignedHeatSolver("tet", device=dev)
+    (fresh,), res_f = timed_solves(fresh_solver, geom, opts.with_(disk_cache=False), 1,
+                                   yk, pell)
+    k1_launches, k2_launches = yk.KERNEL_LAUNCHES, pell.KERNEL_LAUNCHES
+    print(f"greedy and mode upgrade: bunny_dec.obj, {res_g.mesh.n_vertices} vertices, "
+          f"{res_g.mesh.n_tets} tets, temporary disk cache ({len(trees)} artifact)")
+    for name, r in (("greedy (fast_integration=True)", greedy),
+                    ("default solve on the greedy-keyed artifact", up),
+                    ("fresh solver on the upgraded artifact", loaded),
+                    ("fresh solver, disk_cache=False", fresh)):
+        st = r["stats"]
+        print(f"  {name}: {r['s']:.3f} s, step 3 {st['step3_path']}, yukawa launches "
+              f"{r['k1']}, sliced-ELL launches {r['k2']}, phases {json.dumps(st['phases'])}")
+    g = res_g.phi
+    print(f"  greedy phi min {g.min():.5f} max {g.max():.5f}, 0 at its "
+          f"{np.unique(res_g.mesh.src_vertex).size} seeds; upgraded, reloaded and fresh "
+          f"CR phi equal bit for bit: "
+          f"{up['phi'] == loaded['phi'] == fresh['phi']} ({smi})")
+    check(greedy["stats"]["step3_path"] == "greedy" and bool(np.isfinite(g).all()),
+          "greedy integration gives a finite phi")
+    check(float(np.abs(g[np.unique(res_g.mesh.src_vertex)]).max()) == 0.0
+          and g.min() < 0 < g.max(), "greedy phi: 0 at the seeds, both signs")
+    check(any("mode upgrade" in p for p in up["stats"]["phases"])
+          and up["stats"]["step3_path"] == "crouzeix-raviart",
+          "the default solve on the greedy-keyed artifact took the mode-upgrade phase")
+    check(not any("mode upgrade" in p for p in loaded["stats"]["phases"])
+          and len(trees) == 1, "a fresh solver loads the upgraded artifact")
+    check(up["phi"] == fresh["phi"] == loaded["phi"],
+          "the upgraded artifact gives a fresh CR solve's phi bit for bit")
+    check(all(r["k1"] == 1 for r in (greedy, up, loaded, fresh)),
+          "every bunny solve launched the Yukawa kernel")
+    check(k2_launches == 0, "no sliced-ELL launch on bunny_dec (nothing of it to hold)")
+    k1 = k1_at(yk, next(iter(fresh_solver._impl._cache.values())), opts, smi,
+               "bunny_dec barycenters")
+    k1["launches"] = k1_launches
+    return k1
 
 
 def default_tier_phase(solver, geom, opts, phi_fast, yk, smi):
@@ -630,6 +983,24 @@ def roofline_phase(yk, ys, plan, pts, vecs, lam, sfu, smi, dev):
               f"{int((ref < ROW_SUM_FLOOR).sum())} rows under the {ROW_SUM_FLOOR:g} floor)")
         check(bool(torch.isfinite(got).all()), f"skeleton {name} finite")
         check(rel <= SKELETON_RTOL, f"skeleton kernel {name} within tolerance")
+        check(torch.equal(got, ys.skeleton_sum(q, pts, lam)),
+              f"two skeleton launches on the {name} agree bit for bit")
+    # a ragged case and a case that spans several source chunks
+    for name, nq, ns in (("ragged", 5003, 4099), ("several chunks", 36001, 52290)):
+        q = torch.as_tensor(rng.standard_normal((nq, 3)), dtype=torch.float32, device=dev)
+        p = torch.as_tensor(rng.standard_normal((ns, 3)) * 0.3, dtype=torch.float32, device=dev)
+        got = ys.skeleton_sum_cuda(q, p, ROOFLINE_LAM)
+        again = ys.skeleton_sum_cuda(q, p, ROOFLINE_LAM)
+        ref = ys.skeleton_sum_torch(q, p, ROOFLINE_LAM)
+        n_chunks = -(-ns // ys.skeleton_chunk_len(nq, ns, dev))
+        rel = row_rel_err(got, ref)
+        errs.append((got - ref).abs().max().item())
+        print(f"skeleton kernel vs plain  {name} Q={nq} S={ns}: {n_chunks} source chunks, "
+              f"max err / row sum {rel:.3e} (tol {SKELETON_RTOL:g}), two launches bitwise "
+              f"equal {torch.equal(got, again)}")
+        check(rel <= SKELETON_RTOL, f"skeleton kernel {name} case within tolerance")
+        check(torch.equal(got, again), f"skeleton kernel {name} case repeats bit for bit")
+        check(n_chunks > 1 or name == "ragged", "the several-chunks case splits its sources")
 
     rows_out = []
     shapes = [("bench", q_n, s_n) for q_n, s_n in ROOFLINE_SHAPES]
@@ -664,11 +1035,13 @@ def roofline_phase(yk, ys, plan, pts, vecs, lam, sfu, smi, dev):
                    k1_pct_sfu=100.0 * pairs / (k1_ms * 1e-3) / sfu,
                    k3_pct_sfu=100.0 * pairs / (k3_ms * 1e-3) / sfu, noise=noise,
                    within_noise=abs(k1_ms - k3_ms) / k1_ms <= noise,
-                   k1_chunks=chunks(yk, q, p))
+                   k1_chunks=chunks(yk, q, p),
+                   k3_chunks=-(-S // ys.skeleton_chunk_len(Q, S, dev)))
         rows_out.append(row)
         print(f"  {label} Q={Q} S={S}: yukawa {k1_ms:.3f} ms ({row['k1_pairs_s']:.3e} pairs/s, "
               f"{row['k1_pct_sfu']:.1f}% of SFU), skeleton {k3_ms:.3f} ms "
-              f"({row['k3_pairs_s']:.3e} pairs/s, {row['k3_pct_sfu']:.1f}% of SFU); "
+              f"({row['k3_pairs_s']:.3e} pairs/s, {row['k3_pct_sfu']:.1f}% of SFU, "
+              f"{row['k3_chunks']} source chunks); "
               f"pct_of_skeleton {row['pct_of_skeleton']:.1f} (K3's time over K1's, a "
               f"ratio of two kernels, not a share of a bound); spread of the turns "
               f"{noise:.1%}{' -- the two differ by less than the noise' if row['within_noise'] else ''}")
@@ -833,13 +1206,23 @@ def main() -> int:
     ceiling = hbm_ceiling(dev, smi)
     k3_entry, _ = roofline_phase(yk, ys, plan, pts, vecs, lam, sfu, smi, dev)
     sell_cases(pell, ell, dev)
-    tet_k1, k2_entry = tet_phase(smi, dev, ceiling)
+    tet_k1, tet_k2 = tet_phase(smi, dev, ceiling)
+    vertex_k1_launches, vertex_k2 = vertex_phase(smi, dev)
+    cloud_k1, cloud_k2 = cloud_phase(smi, dev)
+    bunny_k1 = upgrade_phase(smi, dev)
     check_no_jax_package()
+    # the vertex phase launches the Yukawa kernel at the tet phase's shape
+    # (the same conforming mesh), the point cloud and bunny_dec at their own
+    tet_k1["launches"] += vertex_k1_launches
 
-    # the Yukawa entry covers both paths: launches summed, the larger error,
-    # and ms the kernel time of one solve of each (grid: shell + coarse
-    # launches; tet: the barycenter launch); per_path keeps them apart.  No
-    # single PyTorch call computes it (library_ms null).
+    # Each entry covers every path that launches its kernel: launches
+    # summed, the largest error, and ms, plain_ms, bound_ms (and library_ms)
+    # summed over the paths' own shapes, one launch set each (Yukawa: the
+    # grid's shell + coarse launches, the knot_dec barycenter launch of the
+    # CR and the vertex phase, the point cloud's, bunny_dec's; sliced ELL:
+    # one product of the CR face operator, of the vertex path's S H S and of
+    # the point cloud's); per_path keeps them apart.  No single PyTorch call
+    # computes the Yukawa field (library_ms null).
     S = int(pts.shape[0])
     grid_bound = sum(pair_bound_ms(int(qq.shape[0]) * S, int(qq.shape[0]), S, sfu)
                      for qq in (plan.shell_pos, plan.coarse_pos))
@@ -847,23 +1230,53 @@ def main() -> int:
     grid_k1 = dict(launches=launches, max_abs_err=err, ms=times["kernel"],
                    plain_ms=times["plain"], bound_ms=grid_bound)
     tet_k1["bound_ms"] = tet_bound
+    cloud_bound = pair_bound_ms(cloud_k1["pairs"], cloud_k1["queries"],
+                                cloud_k1["sources"], sfu)
+    cloud_k1["bound_ms"] = cloud_bound
+    bunny_bound = pair_bound_ms(bunny_k1["pairs"], bunny_k1["queries"],
+                                bunny_k1["sources"], sfu)
+    bunny_k1["bound_ms"] = bunny_bound
     print(f"yukawa kernel vs its SFU bound: grid {grid_k1['ms']:.3f} ms vs "
-          f"{grid_bound:.3f} ms, tet {tet_k1['ms']:.3f} ms vs {tet_bound:.3f} ms ({smi})")
+          f"{grid_bound:.3f} ms, tet {tet_k1['ms']:.3f} ms vs {tet_bound:.3f} ms, "
+          f"tet point cloud {cloud_k1['ms']:.3f} ms vs {cloud_bound:.3f} ms, bunny_dec "
+          f"{bunny_k1['ms']:.3f} ms vs {bunny_bound:.3f} ms ({smi})")
+    k1_paths = {"grid": grid_k1, "tet": tet_k1, "tet_point_cloud": cloud_k1,
+                "tet_bunny": bunny_k1}
+    k2_paths = {"tet": tet_k2, "tet_vertex": vertex_k2, "tet_point_cloud": cloud_k2}
+    print("sliced-ELL kernel vs its useful-bytes bound: " + ", ".join(
+        f"{name} {p['ms']:.4f} ms vs {p['bound_ms']:.4f} ms ({p['launches']} launches)"
+        for name, p in k2_paths.items()) + f" ({smi})")
+
+    def total(paths, key):
+        return sum(p[key] for p in paths.values())
     print(f"card: {smi}")
     print(json.dumps({"kernels": [{
         "name": "yukawa_field",
         "route": "cuda",
         "source": "shm3d_torch/csrc/yukawa.cu",
         "replaces": "shm3d/ops/yukawa.py:129",
-        "launches": launches + tet_k1["launches"],
-        "max_abs_err": max(err, tet_k1["max_abs_err"]),
-        "ms": grid_k1["ms"] + tet_k1["ms"],
-        "plain_ms": grid_k1["plain_ms"] + tet_k1["plain_ms"],
-        "bound_ms": grid_bound + tet_bound,
+        "launches": total(k1_paths, "launches"),
+        "max_abs_err": max(p["max_abs_err"] for p in k1_paths.values()),
+        "ms": total(k1_paths, "ms"),
+        "plain_ms": total(k1_paths, "plain_ms"),
+        "bound_ms": total(k1_paths, "bound_ms"),
         "bound_by": "operations",
         "library_ms": None,
-        "per_path": {"grid": grid_k1, "tet": tet_k1},
-    }, k2_entry, k3_entry]}))
+        "per_path": k1_paths,
+    }, {
+        "name": "sell_matvec",
+        "route": "cuda",
+        "source": "shm3d_torch/csrc/pell.cu",
+        "replaces": "shm3d/solve/pell.py:335",
+        "launches": total(k2_paths, "launches"),
+        "max_abs_err": max(p["max_abs_err"] for p in k2_paths.values()),
+        "ms": total(k2_paths, "ms"),
+        "plain_ms": total(k2_paths, "plain_ms"),
+        "bound_ms": total(k2_paths, "bound_ms"),
+        "bound_by": "bytes",
+        "library_ms": total(k2_paths, "library_ms"),
+        "per_path": k2_paths,
+    }, k3_entry]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

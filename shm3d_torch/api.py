@@ -12,7 +12,13 @@ from .io.mesh_io import Mesh, PointCloud
 
 class SignedHeatSolver:
     """domain: "tet" (the reference's default) or "grid".  ``device``:
-    "cuda" (default) or "cpu"; "cuda" without a card raises."""
+    "cuda" (default) or "cpu"; "cuda" without a card raises.
+
+    The tet domain takes triangle meshes (Crouzeix-Raviart face solve on the
+    conforming tet mesh by default; the vertex path with
+    ``use_crouzeix_raviart=False`` or where the mesh does not conform),
+    polygon meshes and oriented point clouds (vertex path), and
+    ``fast_integration=True`` (greedy BFS on the host)."""
 
     def __init__(self, domain: str = "tet", device="cuda"):
         if domain not in ("tet", "grid"):

@@ -48,36 +48,15 @@
 // Built with nvcc into a shared library with a plain C interface, loaded
 // with ctypes by shm3d_torch/_build.py.
 
-#include <cfloat>
 #include <cmath>
-#include <cstdint>
-#include <cuda_runtime.h>
+
+#include "yukawa_common.cuh"
 
 namespace {
 
-constexpr int THREADS = 256;            // threads per block = sources per stage
-constexpr int QPT = 4;                  // queries per thread
-constexpr int QBLOCK = THREADS * QPT;   // queries per block
+using namespace yukawa;
+
 constexpr float TAU = 32.f;             // log2 margin before a stage is summed again
-constexpr int MAX_CHUNKS = 65535;       // gridDim.y
-
-__device__ __forceinline__ float ex2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ float rsqrt_approx(float x) {
-  float y;
-  asm("rsqrt.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// r^2 + FLT_MIN: a query on a source keeps a finite rsqrt and the
-// coincident source dominates, as in the TPU kernel
-__device__ __forceinline__ float dist2(float dx, float dy, float dz) {
-  return fmaf(dz, dz, fmaf(dy, dy, fmaf(dx, dx, FLT_MIN)));
-}
 
 struct Acc {
   float qx[QPT], qy[QPT], qz[QPT];
@@ -230,33 +209,9 @@ yukawa_merge_kernel(const float4* __restrict__ part, float* __restrict__ out,
 extern "C" {
 
 // Sources a chunk of the partial kernel holds for Q queries and S sources
-// on CUDA device `device` (a multiple of 256, at least 256): the chunking
-// that minimizes the waves of blocks times the stages a block runs (plus
-// one stage of fixed cost a block), from the SM count and the kernel's
-// occupancy.  Returns -1 on a CUDA error.
+// on CUDA device `device` (yukawa::chunk_len).  Returns -1 on a CUDA error.
 int64_t shm3d_yukawa_chunk_len(int64_t Q, int64_t S, int device) {
-  int sms = 0, per_sm = 0;
-  if (cudaSetDevice(device) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) != cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, yukawa_partial_kernel,
-                                                    THREADS, 0) != cudaSuccess)
-    return -1;
-  const int64_t slots = static_cast<int64_t>(sms) * (per_sm > 0 ? per_sm : 1);
-  const int64_t qblocks = (Q + QBLOCK - 1) / QBLOCK;
-  const int64_t stages = (S + THREADS - 1) / THREADS;
-  int64_t best_len = stages, best_cost = -1;
-  for (int64_t c = 1; c <= stages; ++c) {
-    const int64_t len = (stages + c - 1) / c;          // stages a chunk
-    const int64_t chunks = (stages + len - 1) / len;
-    if (chunks > MAX_CHUNKS) continue;
-    const int64_t waves = (qblocks * chunks + slots - 1) / slots;
-    const int64_t cost = waves * (len + 1);
-    if (best_cost < 0 || cost < best_cost) {
-      best_cost = cost;
-      best_len = len;
-    }
-  }
-  return best_len * THREADS;
+  return yukawa::chunk_len(yukawa_partial_kernel, Q, S, device);
 }
 
 // queries (Q, 3), points (S, 3), vectors (S, 3), out (Q, 3): contiguous

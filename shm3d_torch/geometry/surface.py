@@ -103,6 +103,24 @@ def vertex_dual_areas(mesh: Mesh) -> np.ndarray:
     return dual
 
 
+def vertex_normals(mesh: Mesh) -> np.ndarray:
+    """Unit area-weighted vertex normals of a triangle mesh (the sum of the
+    incident faces' vector areas, normalised): what turns a mesh's vertices
+    into an oriented point cloud."""
+    tris, v = mesh.triangles(), mesh.vertices
+    fn = np.cross(v[tris[:, 1]] - v[tris[:, 0]], v[tris[:, 2]] - v[tris[:, 0]])
+    vn = np.zeros_like(v)
+    for k in range(3):
+        np.add.at(vn, tris[:, k], fn)
+    return vn / np.linalg.norm(vn, axis=1, keepdims=True)
+
+
+def normals_checksum(normals: np.ndarray) -> float:
+    """A sum over an (N, 3) array that moves with any entry and not with
+    rounding: holds two copies of a normals routine to one function."""
+    return float(np.abs(np.asarray(normals, np.float64) @ np.array([1.0, 2.0, 3.0])).sum())
+
+
 def connected_components_vertices(mesh: Mesh) -> np.ndarray:
     """Label vertices by connected component of the vertex-edge graph
     (reference: DFS at signed_heat_tet_solver.cpp:183-210). Returns (V,)

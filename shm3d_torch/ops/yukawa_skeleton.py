@@ -8,8 +8,12 @@ the Yukawa kernel's time over this probe's, at the same shapes, is the share
 of its time spent on bookkeeping.  No solve calls it.
 
 - ``skeleton_sum_torch``: the plain PyTorch version, tiled over queries.
-- ``skeleton_sum_cuda``: wrapper of the hand-written Hopper kernel
-  (``shm3d_torch/csrc/yukawa_skeleton.cu``); float32 CUDA tensors only.
+- ``skeleton_partials_torch``: the plain version of the kernel's split over
+  source chunks (one partial row sum a chunk; the kernel's merge adds them
+  in chunk order).
+- ``skeleton_sum_cuda``: wrapper of the hand-written Hopper kernels
+  (``shm3d_torch/csrc/yukawa_skeleton.cu``: the chunked partial row sums
+  and their merge); float32 CUDA tensors only.
 - ``skeleton_sum``: dispatch on the tensor's device -- CPU tensors take the
   plain version, CUDA tensors launch the kernel or raise.
 """
@@ -20,10 +24,11 @@ import ctypes
 
 import torch
 
-from .yukawa import _check_cuda_f32
+from .yukawa import _check_cuda_f32, _index
 
 # Launches of the CUDA kernel in this process (incremented by
-# ``skeleton_sum_cuda`` only, once per launch).
+# ``skeleton_sum_cuda`` only, once per call; a call launches the partial
+# kernel and, for more than one source chunk, its merge).
 KERNEL_LAUNCHES = 0
 
 
@@ -48,9 +53,34 @@ def skeleton_sum_torch(queries: torch.Tensor, src_points: torch.Tensor, lam,
     return out
 
 
+def skeleton_partials_torch(queries: torch.Tensor, src_points: torch.Tensor, lam,
+                            chunk: int, q_tile: int = 2048) -> torch.Tensor:
+    """Plain PyTorch partial row sums over source chunks
+    [k chunk, (k+1) chunk): (C, Q), whose sum over C in chunk order is the
+    kernel's output."""
+    S = src_points.shape[0]
+    return torch.stack([
+        skeleton_sum_torch(queries, src_points[k:k + chunk], lam, q_tile=q_tile)
+        for k in range(0, S, chunk)])
+
+
+def skeleton_chunk_len(Q: int, S: int, device) -> int:
+    """Sources a chunk of the kernel's split holds for Q queries and S
+    sources on a CUDA ``device`` (a multiple of 256): the split that fills
+    the card (``shm3d_yukawa_skeleton_chunk_len`` in
+    csrc/yukawa_skeleton.cu)."""
+    from .._build import load_library
+
+    chunk = load_library().shm3d_yukawa_skeleton_chunk_len(
+        Q, S, _index(torch.device(device)))
+    if chunk <= 0:
+        raise RuntimeError("yukawa skeleton kernel: the device's occupancy query failed")
+    return int(chunk)
+
+
 def skeleton_sum_cuda(queries: torch.Tensor, src_points: torch.Tensor,
                       lam: float) -> torch.Tensor:
-    """Launch the Hopper kernel on the current stream (float32, contiguous
+    """Launch the Hopper kernels on the current stream (float32, contiguous
     (N, 3) CUDA tensors on one device).  Does not synchronize."""
     global KERNEL_LAUNCHES
     device = queries.device
@@ -64,17 +94,24 @@ def skeleton_sum_cuda(queries: torch.Tensor, src_points: torch.Tensor,
     from .._build import load_library
 
     lib = load_library()
+    Q, S = queries.shape[0], src_points.shape[0]
+    chunk = skeleton_chunk_len(Q, S, device)
+    n_chunks = -(-S // chunk)
+    # scratch of the chunks' partial row sums (one chunk writes to ``out``)
+    part = torch.empty((n_chunks if n_chunks > 1 else 0, Q), dtype=torch.float32,
+                       device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.shm3d_yukawa_skeleton_f32(
             ctypes.c_void_p(queries.data_ptr()),
             ctypes.c_void_p(src_points.data_ptr()),
             ctypes.c_void_p(out.data_ptr()),
-            ctypes.c_int64(queries.shape[0]),
-            ctypes.c_int64(src_points.shape[0]),
+            ctypes.c_void_p(part.data_ptr()),
+            ctypes.c_int64(Q),
+            ctypes.c_int64(S),
+            ctypes.c_int64(chunk),
             ctypes.c_float(float(lam)),
-            ctypes.c_int(device.index if device.index is not None
-                         else torch.cuda.current_device()),
+            ctypes.c_int(_index(device)),
             ctypes.c_void_p(stream),
         )
     if err != 0:

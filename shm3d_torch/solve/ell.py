@@ -277,6 +277,37 @@ def sliced_waste(M) -> float:
     return float(int(counts.max()) * A.shape[0]) / float(A.nnz)
 
 
+def to_scipy(m, shape):
+    """The matrix a host EllMat or SlicedEll encodes, as canonical scipy CSR
+    of the given shape in the values' dtype (zero slots are padding and are
+    dropped; panel rows beyond ``shape[0]`` are padding too)."""
+    import scipy.sparse as sp
+
+    if isinstance(m, EllMat):
+        m = fold_tail(m)
+        panels = [(np.asarray(m.cols), np.asarray(m.vals),
+                   np.arange(m.cols.shape[1], dtype=np.int64))]
+    else:
+        inv = np.asarray(m.inv_ids, np.int64)
+        n_sliced = sum(int(c.shape[1]) for c in m.cols)
+        row_of = np.empty(n_sliced, np.int64)
+        sliced = inv < n_sliced
+        row_of[inv[sliced]] = np.flatnonzero(sliced)
+        starts = np.cumsum([0] + [int(c.shape[1]) for c in m.cols])
+        panels = [(np.asarray(c), np.asarray(v), row_of[a:a + c.shape[1]])
+                  for c, v, a in zip(m.cols, m.vals, starts)]
+    rows, cols, vals = [], [], []
+    for c, v, r in panels:
+        keep = v != 0
+        rows.append(np.broadcast_to(r, v.shape)[keep])
+        cols.append(c[keep])
+        vals.append(v[keep])
+    A = sp.coo_matrix((np.concatenate(vals),
+                       (np.concatenate(rows), np.concatenate(cols))), shape=shape).tocsr()
+    A.sort_indices()
+    return A
+
+
 def to_tensor(a: np.ndarray, device) -> torch.Tensor:
     """One numpy array as a tensor of the same dtype on ``device`` (a
     read-only or strided array, e.g. a memory-mapped artifact, is copied

@@ -19,7 +19,6 @@ host f64 defect correction (tet/solver._refined_solve).
 
 from __future__ import annotations
 
-import math
 from typing import Optional, Tuple
 
 import numpy as np
@@ -31,9 +30,10 @@ from .mesher import TetMesh
 from ..utils import order
 
 from .._device import resolve_device, torch_dtype
-from ..solve import amg, ell, krylov, pell
+from ..solve import amg, ell, pell
 from ..utils import tree as tree_mod
-from .solver import _refined_solve, _run_chunked, _stall_window
+from .solver import (_group_projector, _mg_or_jacobi, _pcg, _refined_solve,
+                     _run_chunked, _zeroset_solve)
 
 #: store CR operators paged at or above this nnz (float32 only)
 PAGED_MIN_NNZ = 2_000_000
@@ -69,35 +69,6 @@ def _cr_divergence(Y: torch.Tensor, div_tets2: torch.Tensor,
     return torch.einsum("fkj,fkj->f", div_nvec2, g)
 
 
-def _mg_or_jacobi(h, diag, matvec0=None):
-    """AMG V-cycle when a hierarchy was built, else Jacobi."""
-    if h.sizes:
-        return amg.make_preconditioner_parts(h.levels, h.coarse_inv, h.sizes,
-                                             matvec0=matvec0)
-    return lambda r: r / diag
-
-
-def _mnorm(b: torch.Tensor, precond) -> float:
-    return math.sqrt(abs(float(torch.dot(b, precond(b)))))
-
-
-def _finish(res, rhs_mnorm: float, dtype):
-    return res.residual / max(rhs_mnorm, torch.finfo(dtype).tiny)
-
-
-def _cr_zeroset_solve(b, x0, L, diag, surf_mask, h, tol, maxiter):
-    """Dirichlet on the surface faces: phi = 0 there, L_II phi_I = b_I."""
-    def matvec(x):
-        return surf_mask * pell.apply(L, surf_mask * x) + (1.0 - surf_mask) * x
-
-    # the hierarchy is built on the same masked operator -> matvec0 = matvec
-    precond = _mg_or_jacobi(h, diag, matvec0=matvec)
-    rhs_mnorm = _mnorm(b, precond)
-    res = krylov.cg(matvec, b, x0=x0, precond=precond, tol=tol, maxiter=maxiter,
-                    rhs_mnorm=rhs_mnorm, stall_window=_stall_window(b.dtype))
-    return res.x * surf_mask, res.iterations, _finish(res, rhs_mnorm, b.dtype)
-
-
 def _cr_none_solve(b, x0, L, diag, h, tol, maxiter):
     """Singular CR Poisson solve: L phi = b, constants deflated (b
     pre-deflated by the caller)."""
@@ -112,23 +83,7 @@ def _cr_none_solve(b, x0, L, diag, h, tol, maxiter):
         z = mg(r)
         return z - z.mean()
 
-    rhs_mnorm = _mnorm(b, precond)
-    res = krylov.cg(matvec, b, x0=x0, precond=precond, tol=tol, maxiter=maxiter,
-                    rhs_mnorm=rhs_mnorm, stall_window=_stall_window(b.dtype))
-    return res.x, res.iterations, _finish(res, rhs_mnorm, b.dtype)
-
-
-def _group_projector(group_elems, group_ids, group_winv, n_groups: int):
-    """Orthogonal projector onto {u : u constant over each component's
-    element set}: componentwise averaging."""
-    def project(v):
-        # accumulate=True sums in a fixed order (index_add's CUDA atomics
-        # do not; see ell.fold_tail)
-        sums = torch.zeros(n_groups, dtype=v.dtype, device=v.device).index_put(
-            (group_ids,), v.index_select(0, group_elems), accumulate=True)
-        return v.index_copy(0, group_elems, (sums * group_winv).index_select(0, group_ids))
-
-    return project
+    return _pcg(matvec, b, x0, precond, tol, maxiter)
 
 
 def _cr_multiple_solve(b, x0, L, diag, group_elems, group_ids, group_winv,
@@ -148,10 +103,7 @@ def _cr_multiple_solve(b, x0, L, diag, group_elems, group_ids, group_winv,
 
     mg = _mg_or_jacobi(h, diag, matvec0=lambda v: pell.apply(L, v))
     precond = lambda r: proj(mg(r))
-    rhs_mnorm = _mnorm(b, precond)
-    res = krylov.cg(matvec, b, x0=x0, precond=precond, tol=tol, maxiter=maxiter,
-                    rhs_mnorm=rhs_mnorm, stall_window=_stall_window(b.dtype))
-    return res.x, res.iterations, _finish(res, rhs_mnorm, b.dtype)
+    return _pcg(matvec, b, x0, precond, tol, maxiter)
 
 
 def _project_solve(bvec, x0, P, p_diag, tol, maxiter, shift=0.0):
@@ -159,11 +111,7 @@ def _project_solve(bvec, x0, P, p_diag, tol, maxiter, shift=0.0):
     def matvec(x):
         return pell.apply(P, x) + shift * x
 
-    precond = lambda r: r / p_diag
-    rhs_mnorm = _mnorm(bvec, precond)
-    res = krylov.cg(matvec, bvec, x0=x0, precond=precond, tol=tol, maxiter=maxiter,
-                    rhs_mnorm=rhs_mnorm, stall_window=_stall_window(bvec.dtype))
-    return res.x, res.iterations, _finish(res, rhs_mnorm, bvec.dtype)
+    return _pcg(matvec, bvec, x0, lambda r: r / p_diag, tol, maxiter)
 
 
 # --- projection regularization on sliver-bearing recovery meshes ----------
@@ -448,7 +396,7 @@ class CRPath:
             b64 = m64 * div64
             host_op = lambda x: m64 * (H64 @ (m64 * x)) + (1.0 - m64) * x
             run = lambda b, tol=tol, maxiter=maxiter: _run_chunked(
-                lambda x0, it: _cr_zeroset_solve(
+                lambda x0, it: _zeroset_solve(
                     b, x0, a["L"], a["diag"], a["surf_mask"], h, tol, it),
                 zeros, maxiter, stats=solve_stats)
             phi_f, it1, r1 = refined(run, host_op, b64, refine_stats)

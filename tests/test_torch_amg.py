@@ -146,6 +146,39 @@ def test_matvecs_match_jax(cr_system, encoding):
     np.testing.assert_allclose(got, M @ x, rtol=0, atol=RTOL * np.abs(ref).max())
 
 
+@pytest.mark.parametrize("encoding", ["ell", "ell_tail", "ell_padded", "sliced",
+                                      "sliced_empty_rows"])
+def test_host_encodings_back_to_scipy(cr_system, encoding):
+    """ell.to_scipy returns the matrix an EllMat / SlicedEll was built from,
+    entry for entry, and the sliced-ELL form of that is the form of the
+    matrix itself (what the float32 vertex operator's upload relies on)."""
+    L, _, first_P = cr_system
+    M = L.tocsr().astype(np.float32)
+    if encoding.startswith("sliced"):
+        M = first_P.T.tocsr().astype(np.float32)
+    if encoding == "sliced_empty_rows":
+        M = M.tolil()
+        M[1, :] = 0
+        M[M.shape[0] - 1, :] = 0
+        M = M.tocsr()
+    M.eliminate_zeros()
+    M.sort_indices()
+    op = {"ell": lambda: ell.build_ell(M, np.float32),
+          "ell_tail": lambda: ell.build_ell(M, np.float32, width=3),
+          "ell_padded": lambda: ell.build_ell(M, np.float32, pad_rows_to=128),
+          "sliced": lambda: ell.build_sliced(M, np.float32, max_slices=4),
+          "sliced_empty_rows": lambda: ell.build_sliced(M, np.float32, max_slices=4),
+          }[encoding]()
+    back = ell.to_scipy(op, M.shape)
+    assert back.dtype == np.float32 and back.shape == M.shape
+    np.testing.assert_array_equal(back.indptr, M.indptr)
+    np.testing.assert_array_equal(back.indices, M.indices)
+    np.testing.assert_array_equal(back.data, M.data)
+    a, b = pell.sell_from_csr(back, np.float32), pell.sell_from_csr(M, np.float32)
+    for leaf in ("vals", "cols", "slice_ptr"):
+        np.testing.assert_array_equal(getattr(a, leaf), getattr(b, leaf))
+
+
 def test_hierarchy_device_put_keeps_dtypes(cr_system):
     _, H, first_P = cr_system
     h = amg.build_hierarchy_host(H, np.float32, skip_level0_A=True,

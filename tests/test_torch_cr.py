@@ -165,15 +165,34 @@ def test_facade_disk_cache_roundtrip(cube, tmp_path, monkeypatch):
     assert _rel(ra.phi, ref.phi) <= 1e-8
 
 
-@pytest.mark.parametrize("case", ["point_cloud", "fast_integration"])
+@pytest.mark.parametrize("case", ["point_cloud", "fast_integration", "device_mesh"])
 def test_unported_tet_paths_raise(case):
+    """The vertex path (point clouds) and greedy integration are ported and
+    solve; a device mesh still raises."""
+    if case == "device_mesh":
+        from shm3d_torch.tet.solver import SignedHeatTetSolver
+
+        with pytest.raises(NotImplementedError, match="ROADMAP A16"):
+            SignedHeatTetSolver(device="cpu", mesh=object())
+        return
     geom = read_geometry(BUNNY)
     opts = SignedHeatOptions(dtype="float64", disk_cache=False)
     solver = SignedHeatSolver("tet", device="cpu")
     if case == "point_cloud":
-        cloud = PointCloud(geom.vertices.copy(), geom.vertices.copy())
-        with pytest.raises(NotImplementedError, match="ROADMAP A14"):
-            solver.compute_distance(cloud, opts)
+        res = solver.compute_distance(
+            PointCloud(geom.vertices.copy(), surf.vertex_normals(geom)), opts)
+        assert solver.last_stats["step3_path"] == "vertex"
+        assert not res.mesh.conforming
+        assert np.abs(res.phi_at_sources()).max() == 0.0  # Dirichlet pinned
     else:
-        with pytest.raises(NotImplementedError, match="ROADMAP A17"):
-            solver.compute_distance(geom, opts.with_(fast_integration=True))
+        res = solver.compute_distance(geom, opts.with_(fast_integration=True))
+        assert solver.last_stats["step3_path"] == "greedy"
+        assert np.abs(res.phi[np.unique(res.mesh.src_vertex)]).max() == 0.0  # seeds
+    phi, verts = res.phi, res.mesh.vertices
+    assert phi.shape == (res.mesh.n_vertices,) and np.isfinite(phi).all()
+    # sign structure: positive away from the bunny, negative at its centroid
+    c = geom.vertices.mean(axis=0)
+    d = np.linalg.norm(verts - c, axis=1)
+    radius = np.linalg.norm(geom.vertices - c, axis=1).max()
+    assert np.median(phi[d > 1.5 * radius]) > 0
+    assert phi[np.argmin(d)] < 0

@@ -174,11 +174,15 @@ def test_unported_paths_raise(case, monkeypatch):
                 torch.zeros(8), {"pin_keep": np.arange(2)}, None, opts)
         return
     if case == "tet_domain":
-        # the tet domain runs the Crouzeix-Raviart path; a point cloud takes
-        # the vertex path, which is not ported
-        cloud = PointCloud(geom.vertices.copy(), geom.vertices.copy())
-        with pytest.raises(NotImplementedError, match="A14"):
-            SignedHeatSolver("tet", device="cpu").compute_distance(cloud, base)
+        # the tet domain takes point clouds through its vertex path
+        v = geom.vertices
+        cloud = PointCloud(v.copy(), v / np.linalg.norm(v, axis=1, keepdims=True))
+        solver = SignedHeatSolver("tet", device="cpu")
+        res = solver.compute_distance(cloud, base)
+        assert solver.last_stats["step3_path"] == "vertex"
+        assert np.isfinite(res.phi).all()
+        r = np.linalg.norm(res.mesh.vertices, axis=1)
+        assert np.median(res.phi[r < 0.5]) < 0 < np.median(res.phi[r > 1.5])
         return
     if case in ("host_projected_f64", "beyond_full_row_cap"):
         monkeypatch.setattr(projection, "ORTHO_GRAM_CAP", 0)

@@ -10,8 +10,12 @@ stands in for it.
   to ~5k positive terms);
 - sources padded as the TPU probe pads them (far points at 1e17) add
   exactly zero;
+- the plain version of the kernel's split over source chunks: the chunks'
+  partial row sums, added in chunk order, give the unsplit row sum within
+  1e-12 (f64) or 1e-5 (float32) relative, for ragged and exact splits;
 - on the card, kernel vs plain version in float32, 1e-5 relative to each
-  row sum.
+  row sum, on shapes that split into several source chunks too, and two
+  launches bit for bit (the chunks merge in chunk order).
 """
 
 import numpy as np
@@ -74,6 +78,23 @@ def test_far_padding_adds_zero():
     np.testing.assert_allclose(b.numpy(), a.numpy(), rtol=1e-6, atol=0)
 
 
+@pytest.mark.parametrize("dtype,rtol", [(torch.float64, 1e-12), (torch.float32, 1e-5)])
+@pytest.mark.parametrize("shape,chunk", [((130, 1025), 256), ((257, 5003), 1280),
+                                         ((64, 1024), 256), ((5, 100), 256)])
+def test_chunked_partials_sum_to_the_row_sum(shape, chunk, dtype, rtol):
+    """Ragged last chunks, exact splits and a single chunk."""
+    nq, ns = shape
+    q, p = _inputs(nq, ns, nq + ns + chunk)
+    qt, pt = torch.as_tensor(q, dtype=dtype), torch.as_tensor(p, dtype=dtype)
+    parts = ys.skeleton_partials_torch(qt, pt, LAM, chunk)
+    assert parts.shape == (-(-ns // chunk), nq) and parts.dtype == dtype
+    merged = torch.zeros(nq, dtype=dtype)
+    for part in parts:  # the merge kernel's order
+        merged = merged + part
+    ref = _transcription(q, p.T, LAM)
+    np.testing.assert_array_less(np.abs(merged.numpy() - ref), rtol * ref)
+
+
 def test_dispatch_on_cpu_is_plain_and_wrapper_refuses_cpu():
     q, p = _inputs(64, 300, 3)
     qt, pt = torch.as_tensor(q, dtype=torch.float32), torch.as_tensor(p, dtype=torch.float32)
@@ -85,10 +106,13 @@ def test_dispatch_on_cpu_is_plain_and_wrapper_refuses_cpu():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(1, 1), (1000, 777), (4099, 5001), (70000, 8192)])
+@pytest.mark.parametrize("shape", [(1, 1), (1000, 777), (4099, 5001), (70000, 8192),
+                                   (3001, 52290), (36000, 20001)])
 def test_cuda_kernel_matches_plain(cuda_device, shape):
     """Kernel vs plain version on the card, float32, 1e-5 relative to each
-    row sum: the same positive terms summed in another order."""
+    row sum: the same positive terms summed in another order.  The last two
+    shapes split into several source chunks; every launch repeats bit for
+    bit."""
     nq, ns = shape
     q, p = _inputs(nq, ns, nq + ns)
     qt = torch.as_tensor(q, dtype=torch.float32, device=cuda_device)
@@ -97,7 +121,11 @@ def test_cuda_kernel_matches_plain(cuda_device, shape):
     got = ys.skeleton_sum(qt, pt, LAM)
     assert ys.KERNEL_LAUNCHES == before + 1
     ref = ys.skeleton_sum_torch(qt, pt, LAM)
+    again = ys.skeleton_sum(qt, pt, LAM)
     torch.cuda.synchronize()
     assert got.shape == (nq,) and bool(torch.isfinite(got).all())
+    assert torch.equal(got, again)
+    if ns > 20000:
+        assert ys.skeleton_chunk_len(nq, ns, cuda_device) < ns
     rel = ((got - ref).abs() / ref).max().item()
     assert rel <= 1e-5, rel
