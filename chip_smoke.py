@@ -63,9 +63,27 @@ Run from the repository root:  python3 chip_smoke.py
     temporary disk cache: ``fast_integration=True`` first, then a default
     (Crouzeix-Raviart) solve on the same solver, which must take the "mode
     upgrade" phase and give the phi of a fresh solve bit for bit, with the
-    Yukawa kernel held against its plain version at bunny_dec's barycenters.
+    Yukawa kernel held against its plain version at bunny_dec's barycenters;
+13. the main path at 256^3 (h_coef=4): the subsampled-pin fast tier (one
+    cold and three warm solves, its row and pin counts held to the port's
+    host code), the default tier (one cold and three warm, the correction
+    projecting with all rows through the host loop) and a reference refined
+    to 1e-11, each tier's four solves one phi, the default tier within 1e-5
+    of the reference and closer to |x| - 1 than at 128^3 by the method's
+    O(h); the Yukawa kernel against its plain version on a sample of the
+    256^3 shell launch and the whole coarse launch, timed against its SFU
+    bound;
+14. the host-projected tier at 128^3 (max_device_pins=None): one cold and
+    two warm solves, each Gram solve on the host, within 1e-5 of the 128^3
+    reference;
+15. fast integration at 128^3: the device wavefront (every node visited,
+    two solves one phi) and a constant field integrated to its exact linear
+    phi;
+16. the CLI on the card: ``python -m shm3d_torch.cli`` on bunny_dec at
+    --h 2 writes phi.
 
-Every kernel's launch count is set to 0 just before the path that runs it
+Each grid phase prints the projector's tier it took (bmat, full-row,
+subsampled or host-projected).  Every kernel's launch count is set to 0 just before the path that runs it
 and read just after.  The last two lines of standard output are a JSON
 summary of the kernels and the JSON status line; the card's name and power
 limit come before them.  Any failed check exits non-zero before them; so
@@ -156,6 +174,19 @@ JAX_REL_L2_FAST_TIER = 1.0620449766978294e-06
 JAX_REL_L2_DEFAULT_TIER = 3.324839665958726e-10
 JAX_DEFAULT_PASS_RELS = [7.832e-05, 6.361e-07, 5.852e-09, 3.409e-11]
 FAST_TIER_REL_L2_MAX = 1e-5    # the reference's accuracy bar (BASELINE.md)
+
+# 256^3 (h_coef=4): the stand-in's constraint rows and subsampled pin rows,
+# counted with the port's host code (griddom.constraint_rows,
+# subsample_pin_rows at max_device_pins=4096)
+H_COEF_256 = 4.0
+ROWS_256, PINS_256 = 45532, 2849
+# the subsampled fast tier's distance from its refined reference: shm3d
+# measured 9.5e-4 with 4,096 pins (shm3d/solvers/grid.py, the comment at its
+# full-row tier); the limit only catches a tier that does not pin at all
+SUBSAMPLED_REL_L2_MAX = 1e-2
+# the method is O(h): halving h about halves phi's distance from |x| - 1
+ANALYTIC_RATIO_256 = (0.4, 0.6)
+GRID_KERNELS = ("yukawa_partial", "yukawa_merge")
 
 # roofline phase: bench_kernels.py's shapes (queries, sources), lambda 4
 ROOFLINE_SHAPES = ((1 << 19, 52290), (1 << 20, 52290), (1 << 20, 8192))
@@ -938,9 +969,225 @@ def default_tier_phase(solver, geom, opts, phi_fast, yk, smi):
           "refinement adds no Yukawa launches (2 per solve)")
     check(bool(np.isfinite(phi1).all()) and phi1.shape == phi_fast.shape,
           "default-tier phi finite, of the fast tier's shape")
+    analytic = analytic_rel(res1)
+    print(f"  tier {stats['tier']}; default-tier rel-L2 vs |x|-1 {analytic:.6e}")
+    check(all(r["stats"]["tier"] == "full-row" for r in runs), "default tier on the full-row tier")
     return dict(rel_l2_fast_tier=rel_fast, rel_l2_default_tier=rel_default,
                 refine_rel_res=stats["refine_rel_res"],
-                warm_median_s=statistics.median(warm))
+                warm_median_s=statistics.median(warm), phi_ref=phi_ref, analytic=analytic)
+
+
+def analytic_rel(res) -> float:
+    """rel-L2 of a grid solve's phi against the unit sphere's |x| - 1."""
+    from shm3d_torch.ops.farfield import _positions_of
+
+    g = res.grid
+    pos = _positions_of(np.arange(g.n ** 3, dtype=np.int64), g).astype(np.float64)
+    exact = np.linalg.norm(pos, axis=1) - 1.0
+    return float(np.linalg.norm(res.phi - exact) / np.linalg.norm(exact))
+
+
+def print_grid_solves(what, runs):
+    for k, r in enumerate(runs):
+        st = r["stats"]
+        print(f"  {what} solve {k} ({'cold' if k == 0 else 'warm'}): {r['s']:.4f} s, tier "
+              f"{st['tier']}, yukawa launches {r['k1']}, iters {st.get('iters')}, rel_res "
+              f"{st.get('rel_res')}, refine_pass_rels {st.get('refine_pass_rels')}, "
+              f"correction_iters {st.get('correction_iters')}, refine_detail "
+              f"{st.get('refine_detail')}, host_loop {st.get('host_loop')}, correction_host_loop "
+              f"{st.get('correction_host_loop')}, mem_peak_mb {st.get('mem_peak_mb', 0):.1f}, "
+              f"phases {json.dumps(st['phases'])}")
+
+
+def grid256_phase(smi, dev, sfu, analytic_128):
+    """The main path at 256^3: the subsampled fast tier, the default tier
+    and a refined reference; returns the Yukawa kernel's numbers at the
+    256^3 launch shapes with this phase's launches."""
+    from shm3d_torch import SignedHeatOptions, SignedHeatSolver, make_sphere_cloud
+    from shm3d_torch.ops import yukawa as yk
+    from shm3d_torch.ops.farfield import DeviceShellPlan
+    from shm3d_torch.solve import pell
+
+    geom = make_sphere_cloud(N_POINTS)
+    opts = SignedHeatOptions(dtype="float32", h_coef=H_COEF_256, refine_steps=0,
+                             solver_maxiter=2000, step1_method="auto", disk_cache=False)
+    solver = SignedHeatSolver("grid", device=dev)
+    yk.KERNEL_LAUNCHES = 0
+    fast, res_fast = timed_solves(solver, geom, opts, 4, yk, pell)
+    default, res_def = timed_solves(solver, geom, opts.with_(refine_steps=1), 4, yk, pell)
+    (ref,), res_ref = timed_solves(
+        solver, geom, opts.with_(refine_steps=8, refine_target=1e-11), 1, yk, pell)
+    launches = yk.KERNEL_LAUNCHES
+    cached = next(iter(solver._impl._cache.values()))
+    m, m_pin = int(cached["nodes8"].shape[0]), int(cached["pin_nodes8"].shape[0])
+    phi_ref = res_ref.phi
+    nrm = float(np.linalg.norm(phi_ref))
+    rel_fast = float(np.linalg.norm(res_fast.phi - phi_ref)) / nrm
+    rel_def = float(np.linalg.norm(res_def.phi - phi_ref)) / nrm
+    analytic = analytic_rel(res_def)
+    print(f"grid 256^3: sphere cloud S={N_POINTS}, h_coef={H_COEF_256}, grid {res_fast.grid.n}^3, "
+          f"float32, m={m} constraint rows, {m_pin} pinned on the device")
+    print_grid_solves("fast-tier", fast)
+    print_grid_solves("default-tier", default)
+    print_grid_solves("reference (refine_steps=8, refine_target=1e-11)", [ref])
+    for name, runs in (("fast", fast), ("default", default)):
+        warm = [r["s"] for r in runs[1:]]
+        print(f"  warm {name}-tier solves {[round(w, 4) for w in warm]} s, median "
+              f"{statistics.median(warm):.4f} s; distinct phi {len({r['phi'] for r in runs})} ({smi})")
+    print(f"  rel-L2 against the reference: fast tier {rel_fast:.6e} (limit "
+          f"{SUBSAMPLED_REL_L2_MAX:g}; shm3d 9.5e-4 with 4,096 pins), default tier "
+          f"{rel_def:.6e} (limit {FAST_TIER_REL_L2_MAX:g}); rel-L2 vs |x|-1 of the default "
+          f"tier {analytic:.6e}, {analytic / analytic_128:.3f}x 128^3's {analytic_128:.6e}; "
+          f"yukawa launches {launches}")
+    check(all(r["stats"]["tier"] == "subsampled" for r in fast + default + [ref]),
+          "256^3 takes the subsampled-pin tier")
+    check(m == ROWS_256 and m_pin == PINS_256,
+          f"256^3 rows {m} and pins {m_pin} are the host code's {ROWS_256} and {PINS_256}")
+    for name, runs in (("fast", fast), ("default", default)):
+        check(len({r["phi"] for r in runs}) == 1, f"the four 256^3 {name}-tier solves give one phi")
+        check(all(r["k1"] == 2 for r in runs), f"every 256^3 {name}-tier solve launched K1 twice")
+    check(bool(np.isfinite(res_def.phi).all()) and res_def.phi.shape == (res_def.grid.n ** 3,),
+          "256^3 phi finite, one value a node")
+    check(rel_def <= FAST_TIER_REL_L2_MAX, "256^3 default tier within 1e-5 of its reference")
+    check(rel_fast <= SUBSAMPLED_REL_L2_MAX, "256^3 subsampled fast tier within 1e-2")
+    lo, hi = ANALYTIC_RATIO_256
+    check(lo <= analytic / analytic_128 <= hi, "256^3 analytic rel-L2 0.4-0.6x 128^3's")
+    # the default tier's time is in refine_detail and the host-loop counters
+    profile_solve("warm 256^3 fast-tier solve", lambda: solver.compute_distance(geom, opts),
+                  statistics.median([r["s"] for r in fast[1:]]), smi, names=GRID_KERNELS)
+
+    # K1 at the 256^3 launch shapes
+    plan = next(v for v in cached.values() if isinstance(v, DeviceShellPlan))
+    pts, vecs = cached["points"], cached["vectors"]
+    lam = float(np.sqrt(1.0 / (opts.t_coef * cached["spacing"] ** 2)))
+    rows = np.sort(np.random.default_rng(6).choice(plan.shell_pos.shape[0], size=SAMPLE_ROWS,
+                                                   replace=False))
+    sample = plan.shell_pos[torch.as_tensor(rows, device=dev)].contiguous()
+    err_s, _ = compare(yk, sample, pts, vecs, lam, True)
+    err_c, got_c = compare(yk, plan.coarse_pos, pts, vecs, lam, True)
+    unit_c = (torch.linalg.vector_norm(got_c, dim=1) - 1).abs().max().item()
+    print(f"kernel vs plain  256^3 shell sample Q={sample.shape[0]} S={pts.shape[0]}: max err "
+          f"{err_s:.3e}; coarse launch Q={plan.coarse_pos.shape[0]}: max err {err_c:.3e}, "
+          f"| |Y|-1 | <= {unit_c:.1e} (tol {DIR_TOL:g}); launches split into "
+          f"{chunks(yk, plan.shell_pos, pts)} (shell) and {chunks(yk, plan.coarse_pos, pts)} (coarse)")
+    check(max(err_s, err_c) <= DIR_TOL and unit_c <= 1e-5, "K1 at the 256^3 shapes within tolerance")
+    times, bound = {}, 0.0
+    for name, fn, reps in (("kernel", yk.yukawa_field_cuda, 3), ("plain", yk.yukawa_field_torch, 1)):
+        t = [time_ms(lambda: fn(q, pts, vecs, lam), reps) for q in (plan.shell_pos, plan.coarse_pos)]
+        times[name] = sum(t)
+        print(f"  {name}: shell Q={plan.shell_pos.shape[0]} {t[0]:.3f} ms, coarse "
+              f"Q={plan.coarse_pos.shape[0]} {t[1]:.3f} ms ({smi})")
+    S = int(pts.shape[0])
+    for q in (plan.shell_pos, plan.coarse_pos):
+        bound += pair_bound_ms(int(q.shape[0]) * S, int(q.shape[0]), S, sfu)
+    print(f"  yukawa kernel at 256^3: {times['kernel']:.3f} ms a solve against its SFU bound "
+          f"{bound:.3f} ms ({100 * bound / times['kernel']:.1f}% of the bound); plain "
+          f"{times['plain']:.1f} ms ({smi})")
+    return dict(launches=launches, max_abs_err=max(err_s, err_c), ms=times["kernel"],
+                plain_ms=times["plain"], bound_ms=bound)
+
+
+def hostproj_phase(smi, dev, phi_ref_128):
+    """The host-projected tier at 128^3 (max_device_pins=None); returns its
+    Yukawa launches (the main path's shapes)."""
+    from shm3d_torch import SignedHeatOptions, SignedHeatSolver, make_sphere_cloud
+    from shm3d_torch.ops import yukawa as yk
+    from shm3d_torch.solve import pell, projection
+
+    geom = make_sphere_cloud(N_POINTS)
+    opts = SignedHeatOptions(dtype="float32", h_coef=H_COEF, refine_steps=0,
+                             solver_maxiter=2000, step1_method="auto", disk_cache=False,
+                             max_device_pins=None)
+    solver = SignedHeatSolver("grid", device=dev)
+    yk.KERNEL_LAUNCHES = 0
+    runs, res = timed_solves(solver, geom, opts, 3, yk, pell)
+    launches = yk.KERNEL_LAUNCHES
+    m = int(next(iter(solver._impl._cache.values()))["nodes8"].shape[0])
+    rel = float(np.linalg.norm(res.phi - phi_ref_128) / np.linalg.norm(phi_ref_128))
+    print(f"host-projected tier: the main path's input with max_device_pins=None, m={m}")
+    print_grid_solves("host-projected", runs)
+    for r in runs[1:]:
+        hl, it = r["stats"]["host_loop"], r["stats"]["iters"]
+        print(f"  warm: {r['s']:.4f} s, {it} iterations, {hl['gram_solves']} host Gram solves "
+              f"{hl['gram_solve_s']:.4f} s of the loop's {hl['loop_s']:.4f} s "
+              f"({hl['gram_solve_s'] / hl['loop_s']:.1%}); {1e3 * hl['loop_s'] / max(it, 1):.2f} ms "
+              f"an iteration, {1e3 * hl['gram_solve_s'] / max(hl['gram_solves'], 1):.2f} ms a Gram "
+              f"solve ({smi})")
+    print(f"  rel-L2 against the 128^3 reference {rel:.6e} (limit {FAST_TIER_REL_L2_MAX:g}); "
+          f"distinct phi {len({r['phi'] for r in runs})}")
+    check(all(r["stats"]["tier"] == "host-projected" for r in runs)
+          and m > projection.ORTHO_GRAM_CAP,
+          "max_device_pins=None at 128^3 takes the host-projected tier")
+    check(len({r["phi"] for r in runs}) == 1, "the host-projected solves give one phi")
+    check(rel <= FAST_TIER_REL_L2_MAX, "host-projected fast tier within 1e-5 of the reference")
+    check(all(r["k1"] == 2 for r in runs), "every host-projected solve launched K1 twice")
+    profile_solve("warm host-projected solve", lambda: solver.compute_distance(geom, opts),
+                  statistics.median([r["s"] for r in runs[1:]]), smi, names=GRID_KERNELS)
+    return launches
+
+
+def wavefront_phase(smi, dev, solver, geom, opts):
+    """Fast integration at 128^3 on the main path's solver (a cache hit);
+    returns its Yukawa launches (the main path's shapes)."""
+    from shm3d_torch.ops import yukawa as yk
+    from shm3d_torch.ops.farfield import _positions_of
+    from shm3d_torch.ops.wavefront import greedy_integrate_wavefront
+    from shm3d_torch.solve import pell
+
+    yk.KERNEL_LAUNCHES = 0
+    runs, res = timed_solves(solver, geom, opts.with_(fast_integration=True), 2, yk, pell)
+    launches = yk.KERNEL_LAUNCHES
+    st = runs[-1]["stats"]
+    g = res.grid
+    print(f"fast integration at {g.n}^3: step 3 {st['step3_path']}, {st['wavefront_sweeps']} "
+          f"sweeps, {st['wavefront_visited']} of {g.n ** 3} nodes visited; solves "
+          f"{[round(r['s'], 4) for r in runs]} s, step-3 phase "
+          f"{st['phases'].get('step 3 (greedy wavefront integration, device)', 0):.4f} s, "
+          f"distinct phi {len({r['phi'] for r in runs})} ({smi})")
+    check(all(r["stats"]["step3_path"] == "greedy-wavefront" for r in runs),
+          "fast integration at 128^3 takes the device wavefront")
+    check(st["wavefront_visited"] == g.n ** 3, "the wavefront visited every node")
+    check(len({r["phi"] for r in runs}) == 1 and bool(np.isfinite(res.phi).all()),
+          "two wavefront solves give one finite phi")
+    check(all(r["k1"] == 2 for r in runs), "every wavefront solve launched K1 twice")
+    profile_solve("wavefront solve", lambda: solver.compute_distance(
+        geom, opts.with_(fast_integration=True)), runs[-1]["s"], smi, names=GRID_KERNELS)
+    # a constant unit field integrates to the exact linear phi
+    d = np.array([1.0, 2.0, -0.5])
+    d /= np.linalg.norm(d)
+    Y = torch.as_tensor(np.tile(d, (g.n ** 3, 1)), dtype=torch.float32, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    phi, sweeps, _ = greedy_integrate_wavefront(Y, float(g.cell_size), g.shape)
+    torch.cuda.synchronize()
+    t = time.perf_counter() - t0
+    pos = _positions_of(np.arange(g.n ** 3, dtype=np.int64), g).astype(np.float64)
+    exact = (pos - pos[0]) @ d
+    rel = float(np.linalg.norm(phi.cpu().numpy() - exact) / np.linalg.norm(exact))
+    print(f"  constant field: {sweeps} sweeps in {t:.4f} s, rel-L2 against the exact linear "
+          f"phi {rel:.3e} (limit 1e-5; {smi})")
+    check(rel <= 1e-5, "the wavefront is exact on a constant field")
+    return launches
+
+
+def cli_phase(smi):
+    """The CLI on the card: bunny_dec on a 64^3 grid, phi written."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        phi_path = os.path.join(tmp, "phi.npy")
+        cmd = [sys.executable, "-m", "shm3d_torch.cli", BUNNY, "--grid", "--h", "2",
+               "--device", "cuda", "--no-disk-cache", "--export-phi", phi_path, "--json"]
+        t0 = time.perf_counter()
+        out = subprocess.run(cmd, capture_output=True, text=True, cwd=REPO, timeout=600,
+                             env=dict(os.environ, PYTHONPATH=REPO))
+        s = time.perf_counter() - t0
+        check(out.returncode == 0, f"the CLI exits 0 ({out.stderr[-1500:]})")
+        summary = json.loads(out.stdout.strip().splitlines()[-1])
+        phi = np.load(phi_path)
+    print(f"cli: {' '.join(cmd[1:])}: {s:.2f} s, summary {json.dumps(summary)} ({smi})")
+    check(summary["device"] == "cuda" and phi.shape == (64 ** 3,)
+          and bool(np.isfinite(phi).all()), "the CLI wrote a finite 64^3 phi on the card")
 
 
 def hbm_ceiling(dev, smi) -> float:
@@ -1137,13 +1384,14 @@ def main() -> int:
     cached = next(iter(solver._impl._cache.values()))
     m_rows = int(cached["nodes8"].shape[0])
     print(f"  shell nodes {stats['shell_nodes']} + coarse nodes {stats['coarse_nodes']}, "
-          f"constraint rows m={m_rows}, tform_eps {stats['tform_eps']}, "
+          f"constraint rows m={m_rows}, tier {stats['tier']}, tform_eps {stats['tform_eps']}, "
           f"iters {stats['iters']}, rel_res {stats['rel_res']:.3e}, "
           f"mem_peak_mb {stats['mem_peak_mb']:.1f}")
     print(f"  yukawa kernel launches during the 4 grid solves: {launches}")
     check(launches > 0, "the main path launched the Yukawa kernel")
     check(stats["step3_path"] == "projected-mg-pcg", "step 3 path")
-    check(stats["tform_eps"] is not None, "full-row whitening tier at m > 8192")
+    check(stats["tier"] == "full-row" and stats["tform_eps"] is not None,
+          "full-row whitening tier at m > 8192")
     check(stats["iters"] > 0 and stats["rel_res"] < 1e-4, "MG-PCG converged")
 
     # --- correctness of phi --------------------------------------------------
@@ -1200,9 +1448,14 @@ def main() -> int:
     # --- the default tier, the roofline, the paged kernel, the tet path -----
     profile_solve("warm fast-tier grid solve", lambda: solver.compute_distance(geom, opts),
                   statistics.median(warm), smi)
-    default_tier_phase(solver, geom, opts, phi, yk, smi)
+    tier1 = default_tier_phase(solver, geom, opts, phi, yk, smi)
     check_no_jax_package()
     sfu = sfu_pairs_per_s()
+    wavefront_k1 = wavefront_phase(smi, dev, solver, geom, opts)
+    hostproj_k1 = hostproj_phase(smi, dev, tier1["phi_ref"])
+    grid256_k1 = grid256_phase(smi, dev, sfu, tier1["analytic"])
+    cli_phase(smi)
+    check_no_jax_package()
     ceiling = hbm_ceiling(dev, smi)
     k3_entry, _ = roofline_phase(yk, ys, plan, pts, vecs, lam, sfu, smi, dev)
     sell_cases(pell, ell, dev)
@@ -1218,7 +1471,7 @@ def main() -> int:
     # Each entry covers every path that launches its kernel: launches
     # summed, the largest error, and ms, plain_ms, bound_ms (and library_ms)
     # summed over the paths' own shapes, one launch set each (Yukawa: the
-    # grid's shell + coarse launches, the knot_dec barycenter launch of the
+    # grid's shell + coarse launches at 128^3 and at 256^3, the knot_dec barycenter launch of the
     # CR and the vertex phase, the point cloud's, bunny_dec's; sliced ELL:
     # one product of the CR face operator, of the vertex path's S H S and of
     # the point cloud's); per_path keeps them apart.  No single PyTorch call
@@ -1227,8 +1480,10 @@ def main() -> int:
     grid_bound = sum(pair_bound_ms(int(qq.shape[0]) * S, int(qq.shape[0]), S, sfu)
                      for qq in (plan.shell_pos, plan.coarse_pos))
     tet_bound = pair_bound_ms(tet_k1["pairs"], tet_k1["queries"], tet_k1["sources"], sfu)
-    grid_k1 = dict(launches=launches, max_abs_err=err, ms=times["kernel"],
-                   plain_ms=times["plain"], bound_ms=grid_bound)
+    # the wavefront and host-projected phases launch it at the main path's
+    # shapes
+    grid_k1 = dict(launches=launches + wavefront_k1 + hostproj_k1, max_abs_err=err,
+                   ms=times["kernel"], plain_ms=times["plain"], bound_ms=grid_bound)
     tet_k1["bound_ms"] = tet_bound
     cloud_bound = pair_bound_ms(cloud_k1["pairs"], cloud_k1["queries"],
                                 cloud_k1["sources"], sfu)
@@ -1237,10 +1492,11 @@ def main() -> int:
                                 bunny_k1["sources"], sfu)
     bunny_k1["bound_ms"] = bunny_bound
     print(f"yukawa kernel vs its SFU bound: grid {grid_k1['ms']:.3f} ms vs "
-          f"{grid_bound:.3f} ms, tet {tet_k1['ms']:.3f} ms vs {tet_bound:.3f} ms, "
+          f"{grid_bound:.3f} ms, grid 256^3 {grid256_k1['ms']:.3f} ms vs "
+          f"{grid256_k1['bound_ms']:.3f} ms, tet {tet_k1['ms']:.3f} ms vs {tet_bound:.3f} ms, "
           f"tet point cloud {cloud_k1['ms']:.3f} ms vs {cloud_bound:.3f} ms, bunny_dec "
           f"{bunny_k1['ms']:.3f} ms vs {bunny_bound:.3f} ms ({smi})")
-    k1_paths = {"grid": grid_k1, "tet": tet_k1, "tet_point_cloud": cloud_k1,
+    k1_paths = {"grid": grid_k1, "grid256": grid256_k1, "tet": tet_k1, "tet_point_cloud": cloud_k1,
                 "tet_bunny": bunny_k1}
     k2_paths = {"tet": tet_k2, "tet_vertex": vertex_k2, "tet_point_cloud": cloud_k2}
     print("sliced-ELL kernel vs its useful-bytes bound: " + ", ".join(

@@ -4,20 +4,27 @@ shm3d.solve.projection).
 The constrained Poisson solve runs CG on P H P u = P b with
 P = I - A^T (A A^T)^{-1} A, where A is one trilinear row per pinned grid
 cell, held as (nodes8 (m, 8) int64, coeffs8 (m, 8)).  P is applied through a
-whitened factor of the rows, built in one of two tiers:
+whitened factor of the rows, built in one of three tiers:
 
 - ``bmat`` (m <= ORTHO_GRAM_CAP): the rows re-orthonormalized on the host in
   float64 and stored densely on the touched nodes; P = I - B^T B, exact to
   float32 rounding whatever the conditioning of A A^T.
-- ``tmat`` (ORTHO_GRAM_CAP < m <= TFORM_FULL_CAP, float32): the full-row
-  factor T = chol(D^-1/2 G D^-1/2 + eps I)^-1 D^-1/2 built on the device,
-  applied in factored form with one Gram-refinement step.
+- ``tmat`` of all rows (ORTHO_GRAM_CAP < m <= TFORM_FULL_CAP, float32): the
+  full-row factor T = chol(D^-1/2 G D^-1/2 + eps I)^-1 D^-1/2 built on the
+  device, applied in factored form with one Gram-refinement step.
+- ``tmat`` of a subsample (m > TFORM_FULL_CAP, float32): the exact host
+  factor of spatially separated pin rows (``build_tform_arrays``).
+
+Past ORTHO_GRAM_CAP in float64, or without subsampled pins, the table has
+neither factor and the solver projects each iterate through the host splu
+factor of the full Gram matrix (``host_gram_factor``).
 
 Both caps are read from this module at call time, so tests can patch them.
 """
 
 from __future__ import annotations
 
+import warnings
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -100,7 +107,7 @@ class GramTable(NamedTuple):
     diag: torch.Tensor                     # (m,) diagonal
     bmat: Optional[torch.Tensor] = None    # (r, nt) orthonormalized rows
     touched: Optional[torch.Tensor] = None # (nt,) int64 touched node ids
-    tmat: Optional[torch.Tensor] = None    # (m, m) full-row whitening factor
+    tmat: Optional[torch.Tensor] = None    # (r, m) whitening factor
     tform_eps: Optional[float] = None      # shift the tmat factor settled on
 
 
@@ -109,21 +116,11 @@ def gram_apply(y: torch.Tensor, gram: GramTable) -> torch.Tensor:
     return (gram.val * y[gram.idx]).sum(dim=1)
 
 
-# copied from shm3d/solve/projection.py (build_gram_arrays), with np.dtype in
-# place of jnp.dtype
-def build_gram_arrays(
-    nodes8: np.ndarray, coeffs8: np.ndarray, n: int, dtype,
-    ortho_cap: Optional[int] = None,
-) -> dict:
-    """Host-side extraction of the sparse Gram matrix into a padded neighbor
-    table (K = max nonzeros per row, <= 27: the 26 cell neighbors + self),
-    plus — below the ortho cap — the orthonormalized row factor (see
-    GramTable docstring).  Returns plain numpy arrays (the serializable
-    operator-cache artifact; shm3d.utils.diskcache)."""
+def _gram_table(nodes8: np.ndarray, coeffs8: np.ndarray, n: int):
+    """(G = A A^T as CSR, its padded neighbour table {"idx", "val",
+    "diag"}) of the sparse rows (nodes8, coeffs8)."""
     import scipy.sparse as sp
 
-    if ortho_cap is None:
-        ortho_cap = ORTHO_GRAM_CAP  # resolved at call time (patchable in tests)
     m = nodes8.shape[0]
     rows = np.repeat(np.arange(m), 8)
     A = sp.coo_matrix(
@@ -139,9 +136,28 @@ def build_gram_arrays(
     c = np.arange(G.nnz) - np.repeat(G.indptr[:-1], nnz)
     idx[r, c] = G.indices
     val[r, c] = G.data
+    return G, {"idx": idx, "val": val, "diag": G.diagonal()}
 
-    d = G.diagonal()
-    out = {"idx": idx, "val": val, "diag": d}
+
+# copied from shm3d/solve/projection.py (build_gram_arrays), with np.dtype in
+# place of jnp.dtype and the table extraction shared (_gram_table)
+def build_gram_arrays(
+    nodes8: np.ndarray, coeffs8: np.ndarray, n: int, dtype,
+    ortho_cap: Optional[int] = None,
+) -> dict:
+    """Host-side extraction of the sparse Gram matrix into a padded neighbor
+    table (K = max nonzeros per row, <= 27: the 26 cell neighbors + self),
+    plus — below the ortho cap — the orthonormalized row factor (see
+    GramTable docstring).  Returns plain numpy arrays (the serializable
+    operator-cache artifact; shm3d.utils.diskcache)."""
+    import scipy.sparse as sp
+
+    if ortho_cap is None:
+        ortho_cap = ORTHO_GRAM_CAP  # resolved at call time (patchable in tests)
+    m = nodes8.shape[0]
+    rows = np.repeat(np.arange(m), 8)
+    G, out = _gram_table(nodes8, coeffs8, n)
+    d = out["diag"]
     if m <= ortho_cap:
         # exact f64 re-orthonormalization of the row space (P is basis-
         # independent); exact-duplicate rows show up as eigenvalues at the
@@ -163,6 +179,32 @@ def build_gram_arrays(
         # stored in the compute dtype (dtype is part of the cache key)
         out["bmat"] = B.astype(np.dtype(dtype).type)
         out["touched"] = touched.astype(np.int32)
+    return out
+
+
+# copied from shm3d/solve/projection.py (build_tform_arrays), the table
+# extraction shared (_gram_table)
+def build_tform_arrays(nodes8: np.ndarray, coeffs8: np.ndarray, n: int) -> dict:
+    """Compact whitening factor of well-separated pin rows (the subsampled
+    tier; ``domains.grid.subsample_pin_rows``): with G = A A^T, D = diag(G)
+    and the float64 Cholesky D^-1/2 G D^-1/2 = L L^T, T = L^-1 D^-1/2 makes
+    T A a partial isometry, so P = I - A^T T^T T A.  Falls back to a
+    truncated eigendecomposition if the Cholesky fails."""
+    import scipy.linalg as sla
+    import scipy.sparse as sp
+
+    m = nodes8.shape[0]
+    G, out = _gram_table(nodes8, coeffs8, n)
+    dscale = 1.0 / np.sqrt(out["diag"])
+    Gs = (sp.diags(dscale) @ G @ sp.diags(dscale)).toarray()
+    try:
+        L = sla.cholesky(Gs, lower=True)
+        T = sla.solve_triangular(L, np.eye(m), lower=True) * dscale[None, :]
+    except np.linalg.LinAlgError:
+        lam, Q = np.linalg.eigh(Gs)
+        keep = lam > 1e-10 * lam[-1]
+        T = (Q[:, keep] / np.sqrt(lam[keep])).T * dscale[None, :]
+    out["tmat"] = T
     return out
 
 
@@ -209,8 +251,8 @@ def gram_from_arrays(arr: dict, device, dtype: torch.dtype) -> GramTable:
     For the full-row tier the shift starts at ``arr["tform_eps"]`` and grows
     x10 on each breakdown (TFORM_EPS_ATTEMPTS shifts in all); the shift that
     succeeded is recorded in ``GramTable.tform_eps``.  When every shift
-    fails this raises: the host-projected tier it would fall back to is not
-    ported yet (ROADMAP A10)."""
+    fails this warns and returns a table without a factor, so the solver
+    takes the host-projected loop for this discretization."""
     idx = torch.as_tensor(np.asarray(arr["idx"]), device=device).long()
     val = torch.as_tensor(np.asarray(arr["val"]), device=device).to(dtype)
     diag = torch.as_tensor(np.asarray(arr["diag"]), device=device).to(dtype)
@@ -228,10 +270,11 @@ def gram_from_arrays(arr: dict, device, dtype: torch.dtype) -> GramTable:
                 break
             eps *= 10.0
         else:
-            raise RuntimeError(
-                f"full-row whitening factorization (m={idx.shape[0]}) failed at "
-                f"every shift up to {eps / 10.0:g}; the host-projected tier is "
-                "not ported yet (ROADMAP A10)")
+            warnings.warn(
+                f"shm3d_torch: full-row whitening factorization (m={idx.shape[0]}) "
+                f"failed at every shift up to {eps / 10.0:g}; falling back to "
+                "host-projected solves for this discretization")
+            eps = None
     return GramTable(
         idx, val, diag,
         None if bmat is None else torch.as_tensor(np.asarray(bmat), device=device).to(dtype),
@@ -244,7 +287,9 @@ def gram_from_arrays(arr: dict, device, dtype: torch.dtype) -> GramTable:
 def make_projector(nodes8: torch.Tensor, coeffs8: torch.Tensor, gram: GramTable,
                    n: int, at: AtTable):
     """P v = v - A^T (A A^T)^{-1} A v through the whitened factor of
-    ``gram`` (``tmat`` or ``bmat``); ``at`` is A^T's table for ``tmat``."""
+    ``gram`` (``tmat`` or ``bmat``); ``at`` is A^T's table for ``tmat``.
+    A table with neither factor takes the solver's host-projected loop
+    instead."""
     if gram.tmat is not None:
         T = gram.tmat
 
@@ -260,9 +305,8 @@ def make_projector(nodes8: torch.Tensor, coeffs8: torch.Tensor, gram: GramTable,
         return project_t
 
     if gram.bmat is None:
-        raise NotImplementedError(
-            "GramTable has neither bmat nor tmat: the host-projected tier is "
-            "not ported yet (ROADMAP A10)")
+        raise ValueError("GramTable has neither bmat nor tmat: project through "
+                         "the host factor (host_gram_factor)")
     B = gram.bmat
 
     def project(v):

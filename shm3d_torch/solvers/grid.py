@@ -1,11 +1,12 @@
-"""Grid-domain solver: the device pipeline on a regular grid (port of the
-fast and default tiers of shm3d.solvers.grid).
+"""Grid-domain solver: the device pipeline on a regular grid (port of
+shm3d.solvers.grid).
 
   host:   sources + grid spec + trilinear constraint rows + Gram artifacts
           (NumPy, cached in memory and on disk)
   device: Yukawa kernel (dense or shell) -> adjoint divergence ->
           projected pin-aware MG-PCG -> [float64 defect correction] ->
-          mean shift
+          mean shift;  or, with ``fast_integration``, greedy integration
+          (the host BFS up to 32^3, the device wavefront beyond)
 
 The always-on zero-set pinning (KKT [[L, A^T], [A, 0]], phi = -u) is solved
 with the null-space method: multigrid-preconditioned CG on
@@ -19,10 +20,13 @@ two-float arithmetic answers the TPU's lack of float64) or in host NumPy
 projection runs on the host (splu) and each correction is a float32
 projected MG-PCG solve.
 
-Outside this port so far (each raises NotImplementedError naming its ROADMAP
-item): fast integration, the MINRES-on-KKT method, and the subsampled-pin
-and host-projected tiers taken past ORTHO_GRAM_CAP in float64 or past
-TFORM_FULL_CAP.
+The projector's tier follows the row count m as in shm3d: ``bmat`` up to
+ORTHO_GRAM_CAP; past it in float32 with ``max_device_pins`` set, the
+full-row factor up to TFORM_FULL_CAP and then subsampled pins (the device
+solve pins a spatially separated subset of the rows, and the defect
+correction projects with all of them through the host loop); otherwise the
+host-projected loop (each iteration's two Gram solves by the host splu
+factor of all rows).  The MINRES-on-KKT comparison method is not ported.
 """
 
 from __future__ import annotations
@@ -44,8 +48,11 @@ from ..utils import diskcache
 from .._device import resolve_device, synchronize, torch_dtype
 from .._inputs import check_inputs
 from ..ops import farfield, stencil
+from ..ops.wavefront import greedy_integrate_wavefront
 from ..ops.yukawa import yukawa_field
+from ..oracle.reference import integrate_greedily_grid
 from ..solve import krylov, multigrid, projection
+from ..utils import checks
 from ..utils.timing import PhaseTimer
 
 # disk-cache namespaces: the artifact format of shm3d ("g2"), under keys of
@@ -104,11 +111,16 @@ def _rhs_div(Y: torch.Tensor, cell_size: float, shape, guard_nans: bool) -> torc
 
 
 def _solve_pinned(b, nodes8, coeffs8, gram, at, cell_size: float, shape, tol: float,
-                  maxiter: int, pins=None):
+                  maxiter: int, pins=None, host_gram=None, stats=None):
     """Projected MG-PCG on P H P u = P b in one run (no restarts).  Returns
     (u, iterations, relative preconditioned residual) with u in ker(A).
     Both the matvec and the preconditioner project: MG applied to an
-    unprojected residual builds wrong search directions."""
+    unprojected residual builds wrong search directions.  A Gram table
+    with neither factor takes the host-projected loop (``host_gram``: the
+    host factor of these rows; ``stats`` its counters)."""
+    if gram.bmat is None and gram.tmat is None:
+        return _solve_pinned_hostproj(b, nodes8, coeffs8, at, host_gram, cell_size,
+                                      shape, tol, maxiter, stats)
     N = b.shape[0]
     proj = projection.make_projector(nodes8, coeffs8, gram, N, at)
     mg = multigrid.make_node_preconditioner(shape, cell_size, pins=pins)
@@ -126,6 +138,76 @@ def _solve_pinned(b, nodes8, coeffs8, gram, at, cell_size: float, shape, tol: fl
                     rhs_mnorm=rhs_mnorm, stall_window=60)
     rel = res.residual / max(rhs_mnorm, torch.finfo(b.dtype).tiny)
     return res.x, res.iterations, rel
+
+
+# copied from shm3d/solvers/grid.py (_solve_pinned_hostproj): residual
+# checks every CHECK_EVERY iterations; the loop stops after STALL_CHECKS
+# checks without a 2% gain on the best residual (preconditioned CG's
+# residual is not monotonic: shm3d measured a 6x excursion over ~12
+# iterations at 256^3)
+HOSTPROJ_CHECK_EVERY = 4
+HOSTPROJ_STALL_CHECKS = 6
+
+
+def _solve_pinned_hostproj(b, nodes8, coeffs8, at, host_gram, cell_size: float, shape,
+                           tol: float, maxiter: int, stats=None):
+    """Projected MG-PCG with the exact float64 projection on the host
+    (shm3d's ``_solve_pinned_hostproj``): the node-space matvec, V-cycle
+    (without pin masks), A and A^T run on the device, and each of the two
+    projections of an iteration sends an (m,) vector to the host splu solve
+    of A A^T and back.  Returns (u, iterations, relative preconditioned
+    residual) with u in ker(A).  ``stats`` (a dict) accumulates the Gram
+    solves, their host seconds and the loop's seconds."""
+    _, lu = host_gram
+    N = b.shape[0]
+    mg = multigrid.make_node_preconditioner(shape, cell_size)
+    stats = {} if stats is None else stats
+    for k in ("gram_solves", "gram_solve_s", "loop_s"):
+        stats.setdefault(k, 0)
+    t_loop = time.perf_counter()
+
+    def proj(v):
+        a = projection.a_apply(v, nodes8, coeffs8).cpu().numpy().astype(np.float64)
+        t0 = time.perf_counter()
+        z = lu.solve(a)
+        stats["gram_solve_s"] += time.perf_counter() - t0
+        stats["gram_solves"] += 1
+        return v - projection.at_apply(torch.as_tensor(z, device=v.device).to(v.dtype), at, N)
+
+    def hmatvec(u):
+        return -stencil.laplacian_apply(u.reshape(shape), cell_size).reshape(-1)
+
+    # u = 0, so the first residual is P b and its preconditioned image
+    u = torch.zeros_like(b)
+    r = proj(b)
+    z = proj(mg(r))
+    rz = torch.dot(r, z)
+    bnorm = math.sqrt(abs(float(rz)))
+    threshold = tol * max(bnorm, float(np.finfo(np.float32).tiny))
+    p = z
+    best = resid = bnorm
+    since = k = 0
+    while resid > threshold and k < maxiter and since < HOSTPROJ_STALL_CHECKS:
+        for _ in range(min(HOSTPROJ_CHECK_EVERY, maxiter - k)):
+            Ap = proj(hmatvec(p))
+            pAp = torch.dot(p, Ap)
+            # 0/0 after convergence inside a batch (residuals are read only
+            # every HOSTPROJ_CHECK_EVERY iterations)
+            alpha = torch.where(pAp != 0, rz / pAp, torch.zeros_like(pAp))
+            u = u + alpha * p
+            r = r - alpha * Ap
+            z = proj(mg(r))
+            rz_new = torch.dot(r, z)
+            p = z + torch.where(rz != 0, rz_new / rz, torch.zeros_like(rz)) * p
+            rz = rz_new
+            k += 1
+        resid = math.sqrt(abs(float(rz)))
+        if resid < 0.98 * best:
+            best, since = resid, 0
+        else:
+            since += 1
+    stats["loop_s"] += time.perf_counter() - t_loop
+    return u, k, resid / max(bnorm, float(np.finfo(np.float64).tiny))
 
 
 def _mean_shift(phi, src_nodes8, src_coeffs8, weights):
@@ -203,10 +285,6 @@ def defect_host(u64: np.ndarray, b64: np.ndarray, A, gram_lu, cell: float,
 
 
 def _check_options(options: SignedHeatOptions) -> None:
-    if options.fast_integration:
-        raise NotImplementedError(
-            "fast_integration=True (greedy integration) is not ported yet "
-            "(ROADMAP A12)")
     if options.solver_method != "projected_cg":
         raise NotImplementedError(
             f"solver_method={options.solver_method!r} is not ported: the "
@@ -217,10 +295,10 @@ def _check_options(options: SignedHeatOptions) -> None:
 def cached_from_arrays(arrays: dict, device, dtype: torch.dtype) -> dict:
     """Device operator-cache entry from the host arrays of
     ``GridSolver._build_host_arrays`` (either package: the format is the
-    same)."""
-    if arrays.get("pin_keep") is not None:
-        raise NotImplementedError(
-            "subsampled-pin tier artifacts are not ported yet (ROADMAP A10)")
+    same).  ``nodes8``/``coeffs8``/``at``/``at64`` hold all constraint rows
+    (the host loop, the float64 defect correction); ``pin_nodes8``/
+    ``pin_coeffs8``/``pin_at`` the rows the device solve pins, a subset
+    only on the subsampled tier (``pin_keep``)."""
     grid = griddom.GridSpec(
         bbox_min=tuple(np.asarray(arrays["grid_bbox_min"], np.float64)),
         cell_size=float(arrays["grid_cell"]),
@@ -229,27 +307,25 @@ def cached_from_arrays(arrays: dict, device, dtype: torch.dtype) -> dict:
     gram_arrays = {
         k[len("gram_"):]: v for k, v in arrays.items() if k.startswith("gram_")
     }
-    if gram_arrays.get("bmat") is None and gram_arrays.get("tform_eps") is None:
-        raise NotImplementedError(
-            "host-projected tier (no bmat, no full-row factor) is not ported "
-            "yet (ROADMAP A10)")
 
     def dev(a, dt):
         return torch.as_tensor(np.asarray(a), device=device).to(dt)
 
     nodes8, coeffs8 = np.asarray(arrays["nodes8"]), np.asarray(arrays["coeffs8"], np.float64)
-    return dict(
+    pin_keep = arrays.get("pin_keep")
+    cached = dict(
         grid=grid,
         spacing=float(arrays["spacing"]),
         nodes8=dev(nodes8, torch.int64),
         coeffs8=dev(coeffs8, dtype),
-        # A^T as a gather table: for the compute dtype's projector and for
-        # the float64 defect correction
+        # A^T as a gather table: for the compute dtype and for the float64
+        # defect correction
         at=projection.at_table(nodes8, coeffs8, device, dtype),
         at64=projection.at_table(nodes8, coeffs8, device, torch.float64),
         # host copies for the float64 defect correction
         nodes8_host=nodes8,
         coeffs8_f64=coeffs8,
+        pin_keep=None if pin_keep is None else np.asarray(pin_keep),
         gram=projection.gram_from_arrays(gram_arrays, device, dtype),
         src_nodes8=dev(arrays["src_nodes8"], torch.int64),
         src_coeffs8=dev(arrays["src_coeffs8"], dtype),
@@ -257,6 +333,31 @@ def cached_from_arrays(arrays: dict, device, dtype: torch.dtype) -> dict:
         vectors=dev(arrays["vectors"], dtype),
         weights=dev(arrays["weights"], dtype),
     )
+    if pin_keep is None:
+        cached.update(pin_nodes8=cached["nodes8"], pin_coeffs8=cached["coeffs8"],
+                      pin_at=cached["at"])
+    else:
+        keep = cached["pin_keep"]
+        cached.update(pin_nodes8=dev(nodes8[keep], torch.int64),
+                      pin_coeffs8=dev(coeffs8[keep], dtype),
+                      pin_at=projection.at_table(nodes8[keep], coeffs8[keep], device, dtype))
+    gram = cached["gram"]
+    if gram.bmat is None and gram.tmat is None:
+        # host-projected tier: every iteration projects through the host
+        # factor of all rows, built up front
+        cached["host_gram"] = projection.host_gram_factor(nodes8, coeffs8, grid.total_nodes)
+    return cached
+
+
+def _tier(cached) -> str:
+    """The projector's tier of a cache entry: "bmat", "full-row",
+    "subsampled" or "host-projected"."""
+    gram = cached["gram"]
+    if gram.bmat is not None:
+        return "bmat"
+    if gram.tmat is None:
+        return "host-projected"
+    return "full-row" if cached["pin_keep"] is None else "subsampled"
 
 
 class GridSolver:
@@ -322,34 +423,97 @@ class GridSolver:
                         grid.bbox_min, cell, grid.n, dtype, self.device)
                     cached["queries"] = queries
                 Y = yukawa_field(queries, cached["points"], cached["vectors"], lam)
+            # unit rows except where a node lies on a source (the divergence
+            # guard zeroes those)
+            checks.check_unit_field("grid Step 2 field", Y)
 
-        self.last_stats["step3_path"] = "projected-mg-pcg"
-        with tm.phase("step 3 (divergence + projected MG-PCG solve)"):
-            b = -_rhs_div(Y, cell, grid.shape, is_mesh)
-            pins = cached.get("pin_masks")
-            if pins is None:
-                pins = multigrid.build_pin_masks(cached["nodes8"], grid.shape, dtype)
-                cached["pin_masks"] = pins
-            u, iters, resid = _solve_pinned(
-                b, cached["nodes8"], cached["coeffs8"], cached["gram"], cached["at"], cell,
-                grid.shape, tol, options.solver_maxiter, pins=pins)
-            tm.note(f"projected_cg iters={iters} rel_res={resid:.2e}")
-            self.last_stats["iters"] = iters
-            self.last_stats["rel_res"] = resid
-
-        if options.refine_steps > 0 and dtype == torch.float32:
-            u = self._refine_or_skip(u, Y, cached, grid, is_mesh, options, tm)
+        if options.fast_integration:
+            u = None
+            phi = self._integrate_greedily(Y, grid, dtype, tm)
+        else:
+            u = self._integrate_exact(Y, cached, grid, is_mesh, tol, options, tm)
+            if options.refine_steps > 0 and dtype == torch.float32:
+                u = self._refine_or_skip(u, Y, cached, grid, is_mesh, options, tm)
+            phi = -u
 
         with tm.phase("mean shift along source"):
-            phi = _mean_shift(-u, cached["src_nodes8"], cached["src_coeffs8"],
+            phi = _mean_shift(phi, cached["src_nodes8"], cached["src_coeffs8"],
                               cached["weights"])
+        checks.check_finite("grid phi", phi)
 
         self.last_stats["phases"] = tm.as_dict()
+        self.last_stats["tier"] = _tier(cached)
         self.last_stats["tform_eps"] = cached["gram"].tform_eps
         if self.device.type == "cuda":
             self.last_stats["mem_peak_mb"] = (
                 torch.cuda.max_memory_allocated(self.device) / 1e6)
         return GridResult(phi, grid, Y, u_dev=u)
+
+    def _integrate_greedily(self, Y, grid, dtype, tm) -> torch.Tensor:
+        """Greedy integration of the normalized field: the reference's BFS
+        on the host up to 32^3 (oracle parity where the loop is cheap), the
+        wavefront sweeps on the device beyond (same edge increments, another
+        spanning tree, so path-dependent values differ)."""
+        if grid.n <= 32:
+            self.last_stats["step3_path"] = "greedy-bfs"
+            with tm.phase("step 3 (greedy BFS integration, host)"):
+                phi = integrate_greedily_grid(
+                    grid, Y.detach().cpu().numpy().astype(np.float64))
+                return torch.as_tensor(phi, device=Y.device).to(dtype)
+        self.last_stats["step3_path"] = "greedy-wavefront"
+        with tm.phase("step 3 (greedy wavefront integration, device)"):
+            phi, sweeps, visited = greedy_integrate_wavefront(
+                Y.to(dtype), float(grid.cell_size), grid.shape)
+        self.last_stats["wavefront_sweeps"] = sweeps
+        self.last_stats["wavefront_visited"] = visited
+        return phi
+
+    def _integrate_exact(self, Y, cached, grid, is_mesh, tol, options, tm) -> torch.Tensor:
+        """Divergence and the projected MG-PCG solve of the pinned rows;
+        returns u (phi = -u before the mean shift)."""
+        cell = float(grid.cell_size)
+        self.last_stats["step3_path"] = "projected-mg-pcg"
+        with tm.phase("step 3 (divergence + projected MG-PCG solve)"):
+            if cached["pin_keep"] is not None:
+                tm.note(f"device solve pins {cached['pin_nodes8'].shape[0]} of "
+                        f"{cached['nodes8'].shape[0]} rows (subsampled tier)")
+                if options.solver_tol is None:
+                    # the subsample bounds the fast tier's accuracy (~1e-3
+                    # relative, shm3d's measurement): iterating past 1e-4
+                    # is wasted work
+                    tol = max(tol, 1e-4)
+            b = -_rhs_div(Y, cell, grid.shape, is_mesh)
+            host_loop = {}
+            u, iters, resid = _solve_pinned(
+                b, cached["pin_nodes8"], cached["pin_coeffs8"], cached["gram"],
+                cached["pin_at"], cell, grid.shape, tol, options.solver_maxiter,
+                pins=self._pin_masks(cached, grid), host_gram=cached.get("host_gram"),
+                stats=host_loop)
+            if host_loop:
+                self.last_stats["host_loop"] = host_loop
+            tm.note(f"projected_cg iters={iters} rel_res={resid:.2e}")
+            self.last_stats["iters"] = iters
+            self.last_stats["rel_res"] = resid
+            checks.check_finite("grid Step 3 solution", u)
+            if checks.enabled():
+                # the null-space invariant: the pinned rows hold on the iterate
+                checks.check_constraint(
+                    "grid Step 3 pinning", u,
+                    lambda v: projection.a_apply(v, cached["pin_nodes8"],
+                                                 cached["pin_coeffs8"]),
+                    b_scale=float(torch.linalg.vector_norm(u)))
+        return u
+
+    @staticmethod
+    def _pin_masks(cached, grid):
+        """Per-level masks of the pin-aware V-cycle, from the pinned rows,
+        cached per discretization."""
+        pins = cached.get("pin_masks")
+        if pins is None:
+            pins = multigrid.build_pin_masks(cached["pin_nodes8"], grid.shape,
+                                             cached["coeffs8"].dtype)
+            cached["pin_masks"] = pins
+        return pins
 
     def _refine_or_skip(self, u, Y, cached, grid, is_mesh, options, tm):
         """The default tier's dispatch: the float64 defect correction of the
@@ -494,21 +658,31 @@ class GridSolver:
 
     def _correction_solve(self, rhs: torch.Tensor, cached, grid, options,
                           rel=None) -> torch.Tensor:
-        """Projected MG-PCG on the (scaled) defect in float32: the primary
-        solve's operator, projector and pin masks with a loose per-pass
-        tolerance (``_correction_tol``).  Records ``correction_iters``."""
-        if cached.get("pin_keep") is not None:
-            raise NotImplementedError(
-                "the defect correction of a subsampled-pin solve projects "
-                "with the full row set through the host-projected loop, not "
-                "ported yet (ROADMAP A10)")
+        """Projected MG-PCG on the (scaled) defect in the compute dtype: the
+        primary solve's operator, projector and pin masks with a loose
+        per-pass tolerance (``_correction_tol``).  After a subsampled-pin
+        solve the correction holds ALL rows, through the host-projected
+        loop (a correction in the larger ker(A_pin), projected back, does
+        not contract: shm3d measured the defect growing ~2x a pass).
+        Records ``correction_iters``."""
         gram = cached["gram"]
-        du, iters, _ = _solve_pinned(
-            rhs, cached["nodes8"], cached["coeffs8"], gram, cached["at"],
-            float(grid.cell_size), grid.shape,
-            self._correction_tol(options, rel,
-                                 exact_projector=gram.bmat is not None),
-            options.solver_maxiter, pins=cached.get("pin_masks"))
+        host_loop = self.last_stats.get("correction_host_loop", {})
+        if cached["pin_keep"] is not None:
+            du, iters, _ = _solve_pinned_hostproj(
+                rhs, cached["nodes8"], cached["coeffs8"], cached["at"],
+                self._host_gram(cached, grid), float(grid.cell_size), grid.shape,
+                self._correction_tol(options, rel, exact_projector=False),
+                options.solver_maxiter, host_loop)
+        else:
+            du, iters, _ = _solve_pinned(
+                rhs, cached["pin_nodes8"], cached["pin_coeffs8"], gram, cached["pin_at"],
+                float(grid.cell_size), grid.shape,
+                self._correction_tol(options, rel,
+                                     exact_projector=gram.bmat is not None),
+                options.solver_maxiter, pins=self._pin_masks(cached, grid),
+                host_gram=cached.get("host_gram"), stats=host_loop)
+        if host_loop:
+            self.last_stats["correction_host_loop"] = host_loop
         self.last_stats.setdefault("correction_iters", []).append(int(iters))
         return du
 
@@ -537,7 +711,7 @@ class GridSolver:
         """Host precompute as plain numpy arrays (the serializable operator
         cache artifact, the format of shm3d.solvers.grid): source
         quadrature, grid spec, constraint and source trilinear rows, Gram
-        projection artifacts of the bmat or full-row tier."""
+        projection artifacts of the projector's tier, in shm3d's order."""
         is_mesh = isinstance(geom, Mesh)
         sources = self._sources(geom)
         seed_pts = geom.vertices if is_mesh else geom.positions
@@ -545,21 +719,27 @@ class GridSolver:
         nodes8, coeffs8 = griddom.constraint_rows(grid, sources.points)
         src_nodes8, src_coeffs8 = griddom.trilinear_rows(grid, sources.points)
         m = nodes8.shape[0]
-        if m <= projection.ORTHO_GRAM_CAP:
-            gram_arrays = projection.build_gram_arrays(
-                nodes8, coeffs8, grid.total_nodes, options.dtype)
-        elif (options.max_device_pins is not None and options.dtype == "float32"
-                and m <= projection.TFORM_FULL_CAP):
+        pins = (options.max_device_pins is not None and options.dtype == "float32"
+                and m > projection.ORTHO_GRAM_CAP)
+        pin_keep = None
+        if pins and m <= projection.TFORM_FULL_CAP:
             # full-row whitening tier: the factor of all m rows is built on
             # the device at load (gram_from_arrays)
             gram_arrays = projection.build_tform_full_arrays(
                 nodes8, coeffs8, grid.total_nodes)
+        elif pins:
+            # subsampled tier: the device solve pins a spatially separated,
+            # well-conditioned subset of the rows (all rows stay for the
+            # defect correction)
+            pin_keep = griddom.subsample_pin_rows(
+                grid, nodes8, coeffs8, options.max_device_pins)
+            gram_arrays = projection.build_tform_arrays(
+                nodes8[pin_keep], coeffs8[pin_keep], grid.total_nodes)
         else:
-            raise NotImplementedError(
-                f"m={m} constraint rows with dtype={options.dtype} and "
-                f"max_device_pins={options.max_device_pins} takes the "
-                "subsampled-pin or host-projected tier, not ported yet "
-                "(ROADMAP A10)")
+            # bmat up to ORTHO_GRAM_CAP; past it the table has no factor and
+            # the solve takes the host-projected loop
+            gram_arrays = projection.build_gram_arrays(
+                nodes8, coeffs8, grid.total_nodes, options.dtype)
         arrays = dict(
             grid_bbox_min=np.asarray(grid.bbox_min, np.float64),
             grid_cell=np.float64(grid.cell_size),
@@ -575,6 +755,8 @@ class GridSolver:
         )
         for k, v in gram_arrays.items():
             arrays["gram_" + k] = v
+        if pin_keep is not None:
+            arrays["pin_keep"] = pin_keep.astype(np.int32)
         return arrays
 
     @staticmethod

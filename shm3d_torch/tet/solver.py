@@ -52,7 +52,7 @@ from ..geometry import surface as surf
 from ..io.mesh_io import Mesh
 from . import fem
 from .mesher import MESHER_VERSION, TetMesh, build_tet_domain
-from ..utils import diskcache, treestore
+from ..utils import checks, diskcache, treestore
 
 from .._device import resolve_device, torch_dtype
 from .._inputs import check_inputs
@@ -394,6 +394,7 @@ class SignedHeatTetSolver:
 
         with tm.phase("steps 1&2 (Yukawa at tet barycenters)"):
             Y = yukawa_field(cached["barys"], cached["points"], cached["vectors"], lam)
+            checks.check_unit_field("tet Step 2 field", Y)
 
         cr_wanted = options.use_crouzeix_raviart and not options.fast_integration
         if (cr_wanted and cached.get("cr_path") is None
@@ -423,6 +424,7 @@ class SignedHeatTetSolver:
                 phi = self._integrate(Y, mesh, cached, options, tm)
 
         phi_host = np.asarray(phi, dtype=np.float64)
+        checks.check_finite("tet phi", phi_host)
         self.last_stats["phases"] = tm.as_dict()
         if self.device.type == "cuda":
             self.last_stats["mem_peak_mb"] = (
@@ -633,6 +635,10 @@ class SignedHeatTetSolver:
         mesh: TetMesh = prepared["mesh"]
         H_scipy = (prepared["H_csr"].to_scipy()
                    if prepared["H_csr"] is not None else None)
+        if H_scipy is not None and checks.enabled():
+            # the segment-sum assembly must stay symmetric (CG assumes it)
+            checks.check_symmetric("tet dual Laplacian",
+                                   lambda x: H_scipy @ np.asarray(x), H_scipy.shape[0])
         # the vertex-path operators are dead weight while CR Step 3 is
         # active; an upgraded artifact that carries both families defers
         # the vertex arrays to their first use (_ensure_vertex_ops)

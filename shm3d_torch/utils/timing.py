@@ -1,4 +1,5 @@
-"""Per-phase wall-clock timing (port of shm3d.utils.timing.PhaseTimer).
+"""Per-phase wall-clock timing and a profiler trace (port of
+shm3d.utils.timing's PhaseTimer and profiler_trace).
 
 Each phase ends with a device synchronize, so a span covers the device work
 queued inside it and not only its enqueueing.
@@ -7,9 +8,10 @@ queued inside it and not only its enqueueing.
 from __future__ import annotations
 
 import contextlib
+import os
 import sys
 import time
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -45,3 +47,22 @@ class PhaseTimer:
         for name, dt in self.spans:
             out[name] = out.get(name, 0.0) + dt
         return out
+
+
+@contextlib.contextmanager
+def profiler_trace(logdir: Optional[str]):
+    """Trace the region with ``torch.profiler`` (host and, where a card is
+    visible, CUDA activity) when ``logdir`` is set, and write it there as a
+    Chrome trace (``trace.json``; chrome://tracing or Perfetto)."""
+    if not logdir:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(logdir, "trace.json"))

@@ -89,28 +89,36 @@ def test_full_row_tier_matches_shm3d_f32(cloud, monkeypatch):
     assert _rel(tr.phi, jr.phi) < 1e-4
 
 
-@pytest.mark.parametrize("tier", ["bmat_f64", "full_row_f32"])
+_TIERS = {  # tier: (dtype, caps patched to 0, max_device_pins, cache tier)
+    "bmat_f64": ("float64", (), 4096, "bmat"),
+    "full_row_f32": ("float32", ("ORTHO_GRAM_CAP",), 4096, "full-row"),
+    "subsampled_f32": ("float32", ("ORTHO_GRAM_CAP", "TFORM_FULL_CAP"), 64, "subsampled"),
+    "host_projected_f64": ("float64", ("ORTHO_GRAM_CAP",), 4096, "host-projected"),
+}
+
+
+@pytest.mark.parametrize("tier", list(_TIERS))
 def test_host_arrays_match_shm3d(tier, cloud, monkeypatch):
-    """The port's host precompute is shm3d's, array for array, and the
-    port's device cache builds from shm3d's arrays (byte-identical host
-    state carried across)."""
-    if tier == "full_row_f32":
-        monkeypatch.setattr(jproj, "ORTHO_GRAM_CAP", 0)
-        monkeypatch.setattr(projection, "ORTHO_GRAM_CAP", 0)
-        opts = SignedHeatOptions(dtype="float32", h_coef=1.0, refine_steps=0)
-    else:
-        opts = SignedHeatOptions(dtype="float64", h_coef=1.0, refine_steps=0)
+    """The port's host precompute is shm3d's, array for array (pin_keep and
+    the subsampled tmat too), and the port's device cache builds from
+    shm3d's arrays (byte-identical host state carried across)."""
+    dtype_name, capped, max_pins, cache_tier = _TIERS[tier]
+    for cap in capped:
+        monkeypatch.setattr(jproj, cap, 0)
+        monkeypatch.setattr(projection, cap, 0)
+    opts = SignedHeatOptions(dtype=dtype_name, h_coef=1.0, refine_steps=0,
+                             max_device_pins=max_pins)
     ref = JaxGridSolver()._build_host_arrays(jax_geom(cloud), jax_options(opts))
     got = tgrid.GridSolver(device="cpu")._build_host_arrays(cloud, opts)
     assert got.keys() == ref.keys()
+    assert ("pin_keep" in got) == (tier == "subsampled_f32")
     for k in ref:
         assert np.asarray(got[k]).dtype == np.asarray(ref[k]).dtype, k
         np.testing.assert_array_equal(got[k], ref[k], err_msg=k)
-    dtype = torch.float32 if tier == "full_row_f32" else torch.float64
+    dtype = getattr(torch, dtype_name)
     cached = tgrid.cached_from_arrays(ref, "cpu", dtype)
-    gram = cached["gram"]
-    assert (gram.tmat is not None) == (tier == "full_row_f32")
-    assert (gram.bmat is not None) == (tier == "bmat_f64")
+    assert tgrid._tier(cached) == cache_tier
+    assert ("host_gram" in cached) == (cache_tier == "host-projected")
     assert cached["points"].dtype == dtype
 
 
@@ -157,22 +165,25 @@ def test_port_solve_never_loads_jax():
     "fast_integration", "minres_kkt", "refine_f32", "host_projected_f64",
     "beyond_full_row_cap", "tet_domain"])
 def test_unported_paths_raise(case, monkeypatch):
+    """Only the MINRES-on-KKT method still raises; the other paths that
+    once raised here now solve, each on its own Step-3 path and tier."""
     geom = make_icosphere(1)
     base = SignedHeatOptions(dtype="float64", refine_steps=0, disk_cache=False)
     opts = {
         "fast_integration": base.with_(fast_integration=True),
         "minres_kkt": base.with_(solver_method="minres_kkt"),
-        "refine_f32": base.with_(dtype="float32", refine_steps=1),
+        # the defect correction of a subsampled-pin solve (all rows, through
+        # the host-projected loop)
+        "refine_f32": base.with_(dtype="float32", refine_steps=1, max_device_pins=24),
         "host_projected_f64": base,
         "beyond_full_row_cap": base.with_(dtype="float32"),
     }.get(case)
-    if case == "refine_f32":
-        # the default tier is ported; the correction of a subsampled-pin
-        # solve (full rows through the host-projected loop) waits for A10
-        with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-            tgrid.GridSolver(device="cpu")._correction_solve(
-                torch.zeros(8), {"pin_keep": np.arange(2)}, None, opts)
-        return
+    expect = {  # (step3_path, tier)
+        "fast_integration": ("greedy-bfs", "bmat"),
+        "refine_f32": ("projected-mg-pcg", "subsampled"),
+        "host_projected_f64": ("projected-mg-pcg", "host-projected"),
+        "beyond_full_row_cap": ("projected-mg-pcg", "subsampled"),
+    }.get(case)
     if case == "tet_domain":
         # the tet domain takes point clouds through its vertex path
         v = geom.vertices
@@ -184,11 +195,22 @@ def test_unported_paths_raise(case, monkeypatch):
         r = np.linalg.norm(res.mesh.vertices, axis=1)
         assert np.median(res.phi[r < 0.5]) < 0 < np.median(res.phi[r > 1.5])
         return
-    if case in ("host_projected_f64", "beyond_full_row_cap"):
+    if case in ("refine_f32", "host_projected_f64", "beyond_full_row_cap"):
         monkeypatch.setattr(projection, "ORTHO_GRAM_CAP", 0)
         monkeypatch.setattr(projection, "TFORM_FULL_CAP", 0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tgrid.GridSolver(device="cpu").compute_distance(geom, opts)
+    solver = tgrid.GridSolver(device="cpu")
+    if expect is None:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            solver.compute_distance(geom, opts)
+        return
+    res = solver.compute_distance(geom, opts)
+    assert (solver.last_stats["step3_path"], solver.last_stats["tier"]) == expect
+    assert res.phi.shape == (16 ** 3,) and np.isfinite(res.phi).all()
+    r = np.linalg.norm(_positions_of(np.arange(16 ** 3), res.grid), axis=1)
+    assert np.median(res.phi[r < 0.5]) < 0 < np.median(res.phi[r > 1.5])
+    if case == "refine_f32":
+        st = solver.last_stats
+        assert st["correction_iters"] and st["refine_rel_res"] < st["refine_pass_rels"][0]
 
 
 def test_cuda_request_without_card_raises():

@@ -182,6 +182,9 @@ def test_port_imports_neither_jax_nor_shm3d():
         "    importlib.import_module(name)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'shm3d'))\n"
         "assert not bad, bad\n"
+        "new = {'cli', 'oracle.reference', 'oracle.tet_reference', 'ops.wavefront',\n"
+        "       'utils.checks', 'io.volume_io', 'io.viewer'}\n"
+        "assert {'shm3d_torch.' + m for m in new} <= set(names), sorted(names)\n"
         "print(len(names), 'OK')\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="2")
@@ -189,7 +192,7 @@ def test_port_imports_neither_jax_nor_shm3d():
                          text=True, env=env, cwd=REPO, timeout=300)
     assert out.returncode == 0, out.stderr
     count = int(out.stdout.split()[0])
-    assert count >= 30 and out.stdout.strip().endswith("OK")
+    assert count >= 40 and out.stdout.strip().endswith("OK")
 
 
 @pytest.mark.parametrize("entry", ["api_grid", "api_tet", "grid_solver", "tet_solver"])
