@@ -80,7 +80,20 @@ Run from the repository root:  python3 chip_smoke.py
     two solves one phi) and a constant field integrated to its exact linear
     phi;
 16. the CLI on the card: ``python -m shm3d_torch.cli`` on bunny_dec at
-    --h 2 writes phi.
+    --h 2 writes phi;
+17. the grid domain on a device mesh of four shards of the one card
+    (``device_mesh(devices=[cuda:0] * 4)``, 1-D and 2 x 2): the slab
+    Laplacian and the pin-aware slab V-cycle bitwise equal to the
+    single-device ones at 128^3; the dense ring (2,097,152 queries x 52,290
+    sources, K1's partial kernel on every hop, its merge kernel at the end)
+    against K1 on one device, 1-D and 2-D bitwise equal; the main path on
+    both meshes (1 cold + 3 warm each, shell Step 1 split by rows, Step 3
+    on z-slabs), held to the single-device iterations, phi and the 128^3
+    reference, 2 x 2 bitwise equal to 1 x 4; a dense-Step-1 solve through
+    the ring; the default tier on 4 shards against the reference; and 3
+    shards, which do not split 128, taking the single-device path.  Every
+    mesh solve runs with K1's plain versions replaced by a failing stub, so
+    none can reach them.
 
 Each grid phase prints the projector's tier it took (bmat, full-row,
 subsampled or host-projected).  Every kernel's launch count is set to 0 just before the path that runs it
@@ -90,6 +103,7 @@ limit come before them.  Any failed check exits non-zero before them; so
 does a machine without CUDA, and a directory without the repository.
 """
 
+import contextlib
 import hashlib
 import json
 import os
@@ -977,6 +991,246 @@ def default_tier_phase(solver, geom, opts, phi_fast, yk, smi):
                 warm_median_s=statistics.median(warm), phi_ref=phi_ref, analytic=analytic)
 
 
+@contextlib.contextmanager
+def no_plain_yukawa(yk):
+    """K1's plain versions replaced by stubs that fail the run: a solve on
+    the card must launch the kernels."""
+    names = ("yukawa_field_torch", "yukawa_partials_torch", "yukawa_merge_torch")
+    saved = {n: getattr(yk, n) for n in names}
+
+    def refuse(name):
+        def stub(*args, **kwargs):
+            check(False, f"a mesh solve on the card reached the plain {name}")
+        return stub
+
+    for n in names:
+        setattr(yk, n, refuse(n))
+    try:
+        yield
+    finally:
+        for n, f in saved.items():
+            setattr(yk, n, f)
+
+
+def shard_blocks(q, P):
+    """The row blocks ``farfield._rowsharded`` launches K1 on."""
+    from shm3d_torch.ops.farfield import row_blocks
+
+    step = row_blocks(q.shape[0], P)
+    return [q[k * step:(k + 1) * step] for k in range(P) if k * step < q.shape[0]]
+
+
+def plain_ring(yk, q, pts, vecs, lam, P):
+    """The ring's arithmetic through K1's plain versions: per query shard
+    the partials of every source shard, with the kernel's chunking, merged
+    in the sources' home order."""
+    pad = -pts.shape[0] % P
+    sp = torch.cat([pts, pts.new_full((pad, 3), yk._FAR)]).chunk(P)
+    sv = torch.cat([vecs, vecs.new_zeros((pad, 3))]).chunk(P)
+    out = []
+    for qi in q.chunk(P):
+        parts = [yk.yukawa_partials_torch(qi, p.contiguous(), v.contiguous(), lam,
+                                          yk.yukawa_chunk_len(qi.shape[0], p.shape[0], q.device))
+                 for p, v in zip(sp, sv)]
+        out.append(yk.yukawa_merge_torch(torch.cat(parts)))
+    return torch.cat(out)
+
+
+def mesh_phase(smi, dev, sfu, geom, opts, main):
+    """The grid domain on a device mesh of four shards of the one card;
+    returns the K1 entries of the mesh solves (``grid_mesh``) and of the
+    ring (``grid_ring``) for the kernels line.  ``main``: the single-device
+    main path's solver, phi, iterations and warm median, and the default
+    tier's reference phi and warm median."""
+    import tempfile
+
+    from shm3d_torch import SignedHeatSolver
+    from shm3d_torch.ops import stencil
+    from shm3d_torch.ops import yukawa as yk
+    from shm3d_torch.ops.farfield import DeviceShellPlan
+    from shm3d_torch.parallel import device_mesh, slab, yukawa_field_ring
+    from shm3d_torch.solve import multigrid, pell
+    from shm3d_torch.solvers.grid import _node_positions_device
+
+    mesh4 = device_mesh(devices=[dev] * 4)
+    mesh22 = device_mesh(devices=[dev] * 4, n_slices=2)
+    cached = next(iter(main["solver"]._impl._cache.values()))
+    grid = cached["grid"]
+    n, cell = grid.n, float(grid.cell_size)
+    print(f"mesh: {len(mesh4)} shards of {dev} ({smi}); one card runs repeated-device "
+          f"meshes only, so this shows the decomposition's cost on one card, not scaling")
+
+    # --- slab operators bitwise equal to the single-device ones, f32 128^3
+    rng = np.random.default_rng(7)
+    u = torch.as_tensor(rng.standard_normal((n, n, n)), dtype=torch.float32, device=dev)
+    lap_eq = torch.equal(torch.cat(slab.laplacian_apply(list(u.chunk(4)), cell)),
+                         stencil.laplacian_apply(u, cell))
+    pins = cached["pin_masks"]
+    spins = multigrid.build_slab_pin_masks(cached["pin_nodes8"], n, mesh4, torch.float32)
+    masks_eq = len(pins) == len(spins) and all(
+        torch.equal(a, b if isinstance(b, torch.Tensor) else torch.cat(b))
+        for a, b in zip(pins, spins))
+    e1 = multigrid.v_cycle(u, cell, pins=pins)
+    e4 = torch.cat(multigrid.v_cycle_slabs(list(u.chunk(4)), cell, pins=spins))
+    vc_eq = torch.equal(e1, e4)
+    t_single = time_ms(lambda: multigrid.v_cycle(u, cell, pins=pins), 5)
+    t_slab = time_ms(lambda: multigrid.v_cycle_slabs(list(u.chunk(4)), cell, pins=spins), 5)
+    level, n_level = multigrid.slab_gather_level(n, 4)
+    print(f"  slab Laplacian bitwise equal {lap_eq}; slab pin masks equal {masks_eq}; pin-aware "
+          f"slab V-cycle bitwise equal {vc_eq} (gathered at level {level}, {n_level}^3); "
+          f"V-cycle {t_single:.3f} ms on one device, {t_slab:.3f} ms on 4 slabs ({smi})")
+    check(lap_eq, "slab Laplacian bitwise equal to the single-device one at 128^3")
+    check(masks_eq and vc_eq, "pin-aware slab V-cycle bitwise equal to the single-device one")
+    del u, e1, e4
+
+    # --- the dense ring at 128^3
+    pts, vecs = cached["points"], cached["vectors"]
+    lam = float(np.sqrt(1.0 / (opts.t_coef * cached["spacing"] ** 2)))
+    q = _node_positions_device(grid.bbox_min, cell, n, torch.float32, dev)
+    Q, S = int(q.shape[0]), int(pts.shape[0])
+    yk.PARTIAL_LAUNCHES = yk.MERGE_LAUNCHES = 0
+    with no_plain_yukawa(yk):
+        ring1 = yukawa_field_ring(q, pts, vecs, lam, mesh4).gather()
+        ring2 = yukawa_field_ring(q, pts, vecs, lam, mesh22).gather()
+        torch.cuda.synchronize()
+    ring_launches = dict(partial=yk.PARTIAL_LAUNCHES, merge=yk.MERGE_LAUNCHES)
+    one = yk.yukawa_field_cuda(q, pts, vecs, lam)
+    plain = plain_ring(yk, q, pts, vecs, lam, 4)
+    torch.cuda.synchronize()
+    err_one = (ring1 - one).abs().max().item()
+    err_plain = (ring1 - plain).abs().max().item()
+    ring_eq = torch.equal(ring1, ring2)
+    ring_ms = time_ms(lambda: yukawa_field_ring(q, pts, vecs, lam, mesh4), 2)
+    one_ms = time_ms(lambda: yk.yukawa_field_cuda(q, pts, vecs, lam), 2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain_ring(yk, q, pts, vecs, lam, 4)
+    torch.cuda.synchronize()
+    ring_plain_ms = (time.perf_counter() - t0) * 1e3
+    ring_bound = pair_bound_ms(Q * S, Q, S, sfu)
+    print(f"  ring Q={Q} S={S} on 4 shards: {ring_launches['partial']} partial + "
+          f"{ring_launches['merge']} merge launches in the 1-D and 2-D rings; max err vs K1 on one "
+          f"device {err_one:.3e}, vs the plain ring {err_plain:.3e} (tol {DIR_TOL:g}); 1-D and 2 x 2 "
+          f"bitwise equal {ring_eq}; {ring_ms:.3f} ms (one device {one_ms:.3f} ms, plain "
+          f"{ring_plain_ms:.1f} ms) against its SFU bound {ring_bound:.3f} ms "
+          f"(pair_bound_ms; {100 * ring_bound / ring_ms:.1f}%; {smi})")
+    check(ring_launches == dict(partial=32, merge=8), "the rings launched 16 partial + 4 merge each")
+    check(max(err_one, err_plain) <= DIR_TOL, "the ring within 1e-4 of K1 on one device")
+    check(ring_eq, "the 1-D and 2 x 2 rings give one field bit for bit")
+    del ring1, ring2, one, plain, q
+    torch.cuda.empty_cache()
+
+    # --- the main path on the meshes (a temporary disk cache shares the
+    # host precompute between the phase's solvers)
+    saved = os.environ.get("SHM3D_CACHE_DIR")
+    mopts = opts.with_(disk_cache=True)
+    runs, results = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ["SHM3D_CACHE_DIR"] = tmp
+        try:
+            yk.KERNEL_LAUNCHES = 0
+            with no_plain_yukawa(yk):
+                for name, mesh in (("1x4", mesh4), ("2x2", mesh22)):
+                    solver = SignedHeatSolver("grid", mesh=mesh)
+                    runs[name], results[name] = timed_solves(solver, geom, mopts, 4, yk, pell)
+                    runs[name + " solver"] = solver
+            mesh_k1 = yk.KERNEL_LAUNCHES
+            check(mesh_k1 > 0, "the mesh solves launched K1")
+            with no_plain_yukawa(yk):
+                profile_solve("warm fast-tier solve on 4 shards",
+                              lambda: runs["1x4 solver"].compute_distance(geom, mopts),
+                              statistics.median(r["s"] for r in runs["1x4"][1:]), smi,
+                              names=GRID_KERNELS)
+                yk.PARTIAL_LAUNCHES = yk.MERGE_LAUNCHES = 0
+                (dense,), res_dense = timed_solves(
+                    runs["2x2 solver"], geom, mopts.with_(step1_method="dense"), 1, yk, pell)
+                dense_launches = dict(partial=yk.PARTIAL_LAUNCHES, merge=yk.MERGE_LAUNCHES)
+                default, res_def = timed_solves(runs["1x4 solver"], geom,
+                                                mopts.with_(refine_steps=1), 2, yk, pell)
+            fb_solver = SignedHeatSolver("grid", mesh=device_mesh(devices=[dev] * 3))
+            (fb,), res_fb = timed_solves(fb_solver, geom, mopts, 1, yk, pell)
+        finally:
+            if saved is None:
+                del os.environ["SHM3D_CACHE_DIR"]
+            else:
+                os.environ["SHM3D_CACHE_DIR"] = saved
+    phi_ref, phi1 = main["phi_ref"], main["phi"]
+    nrm_ref, nrm1 = float(np.linalg.norm(phi_ref)), float(np.linalg.norm(phi1))
+    for name in ("1x4", "2x2"):
+        rr = runs[name]
+        st = rr[-1]["stats"]
+        res = results[name]
+        rel_ref = float(np.linalg.norm(res.phi - phi_ref)) / nrm_ref
+        rel_one = float(np.linalg.norm(res.phi - phi1)) / nrm1
+        warm = [r["s"] for r in rr[1:]]
+        print_grid_solves(f"mesh {name}", rr)
+        print(f"  mesh {name}: warm {[round(w, 4) for w in warm]} s, median "
+              f"{statistics.median(warm):.4f} s (one device {main['warm_median_s']:.4f} s); iters "
+              f"{st['iters']} (one device {main['iters']}); K1 launches a solve "
+              f"{[r['k1'] for r in rr]}; mem_peak_mb {st.get('mem_peak_mb', 0):.1f}; mesh "
+              f"{json.dumps(st['mesh'])}; rel-L2 vs the reference {rel_ref:.6e}, vs the "
+              f"single-device phi {rel_one:.6e}; distinct phi {len({r['phi'] for r in rr})} ({smi})")
+        check(all(r["stats"]["mesh"]["fallback"] is False and r["stats"]["tier"] == "full-row"
+                  for r in rr), f"mesh {name}: z-slabs on the full-row tier")
+        check(all(abs(r["stats"]["iters"] - main["iters"]) <= 2 for r in rr),
+              f"mesh {name}: iterations within 2 of the single-device {main['iters']}")
+        check(rel_ref <= FAST_TIER_REL_L2_MAX, f"mesh {name}: within 1e-5 of the reference")
+        check(rel_one <= FAST_TIER_REL_L2_MAX, f"mesh {name}: within 1e-5 of the single-device phi")
+        check(len({r["phi"] for r in rr}) == 1, f"mesh {name}: four solves give one phi")
+        check(all(r["k1"] == 8 for r in rr), f"mesh {name}: K1 twice on each of 4 shards a solve")
+        check(torch.equal(res.Y, main["Y"]),
+              f"mesh {name}: the Step-1 field bitwise equal to the single-device one")
+    check(np.array_equal(results["2x2"].phi, results["1x4"].phi),
+          "the 2 x 2 mesh's phi bitwise equal to the 1 x 4 mesh's")
+    analytic = analytic_rel(res_dense)
+    print(f"  dense Step 1 on the 2 x 2 ring through GridSolver: {dense['s']:.4f} s, "
+          f"{dense_launches['partial']} partial + {dense_launches['merge']} merge launches, iters "
+          f"{dense['stats']['iters']}, rel-L2 vs |x|-1 {analytic:.6e} (JAX package, shell: "
+          f"{JAX_ANALYTIC_REL_L2:.6e}; {smi})")
+    check(dense_launches == dict(partial=16, merge=4) and dense["k1"] == 0,
+          "the dense mesh solve ran Step 1 on the ring's kernels")
+    check(abs(analytic - JAX_ANALYTIC_REL_L2) / JAX_ANALYTIC_REL_L2 <= ANALYTIC_BAND,
+          "dense mesh solve's analytic rel-L2 within 10% of the JAX package's")
+    rel_def = float(np.linalg.norm(res_def.phi - phi_ref)) / nrm_ref
+    print_grid_solves("mesh 1x4 default-tier", default)
+    print(f"  mesh 1x4 default tier: {[round(r['s'], 4) for r in default]} s (one device warm "
+          f"{main['default_warm_s']:.4f} s), rel-L2 vs the reference {rel_def:.6e} (one device "
+          f"1.469e-10; limit 1e-8), distinct phi {len({r['phi'] for r in default})} ({smi})")
+    check(rel_def <= 1e-8, "mesh default tier within 1e-8 of the reference")
+    check(len({r["phi"] for r in default}) == 1, "two mesh default-tier solves give one phi")
+    fb_mesh = fb["stats"]["mesh"]
+    print(f"  3 shards at {n}^3: {fb['s']:.4f} s, mesh {json.dumps(fb_mesh)}, phi bitwise equal "
+          f"to the single-device {np.array_equal(res_fb.phi, phi1)}")
+    check(fb_mesh["fallback"] is True and np.array_equal(res_fb.phi, phi1),
+          "3 shards fall back to the single-device path with its phi")
+
+    # --- K1 at the mesh solves' launch shapes (4 row blocks of each launch,
+    # each with the source chunks of the whole launch)
+    plan = next(v for v in cached.values() if isinstance(v, DeviceShellPlan))
+    launches = [(b, yk.yukawa_chunk_len(q.shape[0], S, dev))
+                for q in (plan.shell_pos, plan.coarse_pos) for b in shard_blocks(q, 4)]
+    blocks = [b for b, _ in launches]
+    errs = []
+    for b, c in launches:
+        got = yk.yukawa_field_cuda(b, pts, vecs, lam, chunk=c)
+        errs.append((got - yk.yukawa_field_torch(b, pts, vecs, lam)).abs().max().item())
+    ms = sum(time_ms(lambda: yk.yukawa_field_cuda(b, pts, vecs, lam, chunk=c), 5)
+             for b, c in launches)
+    plain_ms = sum(time_ms(lambda: yk.yukawa_field_torch(b, pts, vecs, lam), 1) for b in blocks)
+    bound = sum(pair_bound_ms(int(b.shape[0]) * S, int(b.shape[0]), S, sfu) for b in blocks)
+    print(f"  K1 at the mesh solve's {len(blocks)} launches ({[int(b.shape[0]) for b in blocks]} queries): "
+          f"{ms:.3f} ms a solve (one device {main['k1_ms']:.3f} ms) against its SFU bound "
+          f"{bound:.3f} ms ({100 * bound / ms:.1f}%); max err vs plain {max(errs):.3e}; plain "
+          f"{plain_ms:.1f} ms ({smi})")
+    check(max(errs) <= DIR_TOL, "K1 at the mesh's row blocks within tolerance")
+    grid_mesh = dict(launches=mesh_k1, max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+                     bound_ms=bound)
+    grid_ring = dict(launches=sum(ring_launches.values()) + sum(dense_launches.values()),
+                     max_abs_err=err_plain, ms=ring_ms, plain_ms=ring_plain_ms,
+                     bound_ms=ring_bound)
+    return grid_mesh, grid_ring
+
+
 def analytic_rel(res) -> float:
     """rel-L2 of a grid solve's phi against the unit sphere's |x| - 1."""
     from shm3d_torch.ops.farfield import _positions_of
@@ -1451,6 +1705,11 @@ def main() -> int:
     tier1 = default_tier_phase(solver, geom, opts, phi, yk, smi)
     check_no_jax_package()
     sfu = sfu_pairs_per_s()
+    mesh_k1, ring_k1 = mesh_phase(smi, dev, sfu, geom, opts, dict(
+        solver=solver, phi=phi, iters=stats["iters"], warm_median_s=statistics.median(warm),
+        phi_ref=tier1["phi_ref"], default_warm_s=tier1["warm_median_s"], k1_ms=times["kernel"],
+        Y=res.Y))
+    check_no_jax_package()
     wavefront_k1 = wavefront_phase(smi, dev, solver, geom, opts)
     hostproj_k1 = hostproj_phase(smi, dev, tier1["phi_ref"])
     grid256_k1 = grid256_phase(smi, dev, sfu, tier1["analytic"])
@@ -1496,7 +1755,8 @@ def main() -> int:
           f"{grid256_k1['bound_ms']:.3f} ms, tet {tet_k1['ms']:.3f} ms vs {tet_bound:.3f} ms, "
           f"tet point cloud {cloud_k1['ms']:.3f} ms vs {cloud_bound:.3f} ms, bunny_dec "
           f"{bunny_k1['ms']:.3f} ms vs {bunny_bound:.3f} ms ({smi})")
-    k1_paths = {"grid": grid_k1, "grid256": grid256_k1, "tet": tet_k1, "tet_point_cloud": cloud_k1,
+    k1_paths = {"grid": grid_k1, "grid256": grid256_k1, "grid_mesh": mesh_k1,
+                "grid_ring": ring_k1, "tet": tet_k1, "tet_point_cloud": cloud_k1,
                 "tet_bunny": bunny_k1}
     k2_paths = {"tet": tet_k2, "tet_vertex": vertex_k2, "tet_point_cloud": cloud_k2}
     print("sliced-ELL kernel vs its useful-bytes bound: " + ", ".join(

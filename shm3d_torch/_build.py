@@ -176,6 +176,17 @@ def load_library() -> ctypes.CDLL:
         ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ]
     lib.shm3d_yukawa_f32.restype = ctypes.c_int
+    lib.shm3d_yukawa_partials_f32.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_float,
+        ctypes.c_int, ctypes.c_void_p,
+    ]
+    lib.shm3d_yukawa_partials_f32.restype = ctypes.c_int
+    lib.shm3d_yukawa_merge_f32.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+    ]
+    lib.shm3d_yukawa_merge_f32.restype = ctypes.c_int
     lib.shm3d_yukawa_chunk_len.argtypes = [ctypes.c_int64, ctypes.c_int64, ctypes.c_int]
     lib.shm3d_yukawa_chunk_len.restype = ctypes.c_int64
     lib.shm3d_yukawa_skeleton_f32.argtypes = [

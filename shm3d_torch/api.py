@@ -18,20 +18,24 @@ class SignedHeatSolver:
     conforming tet mesh by default; the vertex path with
     ``use_crouzeix_raviart=False`` or where the mesh does not conform),
     polygon meshes and oriented point clouds (vertex path), and
-    ``fast_integration=True`` (greedy BFS on the host)."""
+    ``fast_integration=True`` (greedy BFS on the host).
 
-    def __init__(self, domain: str = "tet", device="cuda"):
+    ``mesh``: a device mesh (shm3d_torch.parallel.device_mesh) for the grid
+    domain's multi-device solve; the tet domain on a mesh is not ported yet
+    (ROADMAP A16b) and raises."""
+
+    def __init__(self, domain: str = "tet", device="cuda", mesh=None):
         if domain not in ("tet", "grid"):
             raise ValueError(f"domain must be 'tet' or 'grid', got {domain!r}")
         self.domain = domain
         if domain == "tet":
             from .tet.solver import SignedHeatTetSolver
 
-            self._impl = SignedHeatTetSolver(device=device)
+            self._impl = SignedHeatTetSolver(device=device, mesh=mesh)
         else:
             from .solvers.grid import GridSolver
 
-            self._impl = GridSolver(device=device)
+            self._impl = GridSolver(device=device, mesh=mesh)
 
     def compute_distance(self, geom: Union[Mesh, PointCloud],
                          options: SignedHeatOptions = SignedHeatOptions()):

@@ -6,8 +6,10 @@ The reference binary accepts ``--g/--grid``, ``--f/--fast``,
 ``--V/--verbose`` and opens a Polyscope GUI; this CLI keeps those flags,
 implements ``--h`` (hCoef), and adds headless outputs.  It solves on
 ``--device`` (default ``cuda``; ``cuda`` without a card fails, nothing
-falls back to the CPU).  Multi-device runs (``--devices``, ``--slices``)
-are not ported yet.
+falls back to the CPU).  ``--devices N`` (with ``--slices K``) solves the
+grid domain on a mesh of the first N devices of ``--device``'s type (N CPU
+shards with ``--device cpu``); the tet domain on a mesh is not ported yet
+(ROADMAP A16b).
 """
 
 from __future__ import annotations
@@ -60,10 +62,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="torch device to solve on: cuda (default) or cpu")
     p.add_argument("--devices", type=int, default=0, metavar="N",
-                   help="multi-device run over N devices (not ported yet: "
-                        "ROADMAP A16; 0 = single device)")
+                   help="grid domain: solve on a mesh of the first N devices of "
+                        "--device's type (N CPU shards with --device cpu): the "
+                        "Step-1 kernel split over them, Step 3 on z-slabs; "
+                        "0 = single device")
     p.add_argument("--slices", type=int, default=1, metavar="K",
-                   help="with --devices N: K slices (not ported yet: ROADMAP A16)")
+                   help="with --devices N: a 2-D mesh of K slices of N/K devices "
+                        "(the hierarchical ring for the dense Step 1)")
     p.add_argument("--no-disk-cache", action="store_true",
                    help="disable the cross-process operator cache "
                         "($SHM3D_CACHE_DIR)")
@@ -97,10 +102,8 @@ _CONSTRAINTS = {
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.devices or args.slices != 1:
-        raise NotImplementedError(
-            "--devices/--slices (multi-device solves) are not ported yet "
-            "(ROADMAP A16)")
+    if args.slices != 1 and not args.devices:
+        raise ValueError("--slices needs --devices")
     if args.debug:
         from .utils import checks
 
@@ -120,7 +123,13 @@ def main(argv=None) -> int:
         disk_cache=not args.no_disk_cache,
         verbose=args.verbose,
     )
-    solver = SignedHeatSolver("grid" if args.grid else "tet", device=args.device)
+    mesh = None
+    if args.devices:
+        from .parallel import device_mesh
+
+        mesh = device_mesh(args.devices, n_slices=args.slices, device=args.device)
+    solver = SignedHeatSolver("grid" if args.grid else "tet", device=args.device,
+                              mesh=mesh)
 
     if args.view:
         from .io.viewer import launch_viewer
@@ -173,6 +182,7 @@ def main(argv=None) -> int:
             # the reference BFS
             "step3_path": solver.last_stats.get("step3_path"),
             "tier": solver.last_stats.get("tier"),
+            "mesh": solver.last_stats.get("mesh"),
         }))
     return 0
 

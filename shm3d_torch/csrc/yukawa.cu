@@ -214,6 +214,45 @@ int64_t shm3d_yukawa_chunk_len(int64_t Q, int64_t S, int device) {
   return yukawa::chunk_len(yukawa_partial_kernel, Q, S, device);
 }
 
+// The partial kernel alone: part (ceil(S / chunk), Q) float4 receives, per
+// source chunk and query, (m, a) with m = lam2 * (reference distance) and
+// a = sum v exp2(m - lam2 r) / r.  queries (Q, 3), points (S, 3), vectors
+// (S, 3): contiguous float32 arrays on CUDA device `device`; chunk a
+// multiple of 256 (shm3d_yukawa_chunk_len); lam2 = lam * log2(e).
+// Launches on `stream` and returns cudaGetLastError() (0 on success); does
+// not synchronize.
+int shm3d_yukawa_partials_f32(const float* queries, const float* points,
+                              const float* vectors, float* part, int64_t Q, int64_t S,
+                              int64_t chunk, float lam2, int device, void* stream) {
+  if (Q <= 0 || S <= 0) return 0;
+  if (chunk <= 0 || chunk % THREADS != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t chunks = (S + chunk - 1) / chunk;
+  if (chunks > MAX_CHUNKS) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  const dim3 grid(static_cast<unsigned int>((Q + QBLOCK - 1) / QBLOCK),
+                  static_cast<unsigned int>(chunks));
+  yukawa_partial_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      queries, points, vectors, reinterpret_cast<float4*>(part), Q, S, chunk, lam2);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The merge kernel alone: part (chunks, Q) float4 from any number of
+// partial launches over disjoint sources, stacked in the order to merge;
+// out (Q, 3) float32 receives X / |X| (normalize = 1) or X.  Same stream
+// and error contract as shm3d_yukawa_partials_f32.
+int shm3d_yukawa_merge_f32(const float* part, float* out, int64_t Q, int64_t chunks,
+                           int normalize, int device, void* stream) {
+  if (Q <= 0) return 0;
+  if (chunks <= 0 || chunks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  yukawa_merge_kernel<<<static_cast<unsigned int>((Q + THREADS - 1) / THREADS), THREADS, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      reinterpret_cast<const float4*>(part), out, Q, static_cast<int>(chunks), normalize);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // queries (Q, 3), points (S, 3), vectors (S, 3), out (Q, 3): contiguous
 // float32 arrays on CUDA device `device`; part: (ceil(S / chunk), Q) float4
 // scratch, chunk a multiple of 256 (shm3d_yukawa_chunk_len); lam2 = lam *
@@ -223,23 +262,11 @@ int shm3d_yukawa_f32(const float* queries, const float* points,
                      const float* vectors, float* out, float* part, int64_t Q,
                      int64_t S, int64_t chunk, float lam2, int normalize,
                      int device, void* stream) {
-  if (Q <= 0 || S <= 0) return 0;
-  if (chunk <= 0 || chunk % THREADS != 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t chunks = (S + chunk - 1) / chunk;
-  if (chunks > MAX_CHUNKS) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t set = cudaSetDevice(device);
-  if (set != cudaSuccess) return static_cast<int>(set);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid(static_cast<unsigned int>((Q + QBLOCK - 1) / QBLOCK),
-                  static_cast<unsigned int>(chunks));
-  yukawa_partial_kernel<<<grid, THREADS, 0, st>>>(
-      queries, points, vectors, reinterpret_cast<float4*>(part), Q, S, chunk, lam2);
-  const cudaError_t launched = cudaGetLastError();
-  if (launched != cudaSuccess) return static_cast<int>(launched);
-  yukawa_merge_kernel<<<static_cast<unsigned int>((Q + THREADS - 1) / THREADS), THREADS,
-                        0, st>>>(reinterpret_cast<const float4*>(part), out, Q,
-                                 static_cast<int>(chunks), normalize);
-  return static_cast<int>(cudaGetLastError());
+  const int err = shm3d_yukawa_partials_f32(queries, points, vectors, part, Q, S, chunk,
+                                            lam2, device, stream);
+  if (err != 0 || Q <= 0 || S <= 0) return err;
+  return shm3d_yukawa_merge_f32(part, out, Q, (S + chunk - 1) / chunk, normalize, device,
+                                stream);
 }
 
 const char* shm3d_cuda_error_string(int err) {

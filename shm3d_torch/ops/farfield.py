@@ -1,5 +1,5 @@
 """Shell decomposition of the Step-1 Yukawa sum on the grid domain (port of
-shm3d.ops.farfield, single device).
+shm3d.ops.farfield).
 
 Step 2 keeps only the direction of X, and that direction is a softmin over
 sources: away from the surface it varies on the scale of the distance to
@@ -7,6 +7,9 @@ the surface.  So the exact kernel runs on the near-surface shell
 (lam * dist <= T) and on a lattice coarsened ``factor`` times per axis;
 every other node takes the trilinearly interpolated, renormalized coarse
 direction.  The host plan (NumPy + SciPy EDT) is shared with ``shm3d``.
+On a device mesh the kernel's query rows are split over the shards with
+the sources replicated (``_rowsharded``), and the assembled field ends as
+z-slabs.
 """
 
 from __future__ import annotations
@@ -17,8 +20,9 @@ import numpy as np
 import torch
 
 from ..domains.grid import GridSpec
+from ..parallel.shards import broadcast, shard_rows
 
-from .yukawa import yukawa_field
+from .yukawa import QUERY_BLOCK, yukawa_chunk_len, yukawa_field
 
 # copied from shm3d/ops/farfield.py (DEFAULT_SHELL_T, DEFAULT_COARSE_FACTOR)
 DEFAULT_SHELL_T = 8.0
@@ -200,16 +204,49 @@ class DeviceShellPlan:
         return cls(ShellPlan.from_arrays(arrays), device, dtype)
 
 
+def row_blocks(n_rows: int, n_shards: int) -> int:
+    """Rows a shard takes in ``_rowsharded``: an equal share rounded up to
+    the kernel's query block (the last shards take the rest, maybe none)."""
+    return -(-n_rows // (n_shards * QUERY_BLOCK)) * QUERY_BLOCK
+
+
+def _rowsharded(queries, src_points, src_vectors, lam, mesh) -> torch.Tensor:
+    """The dense kernel with query ROWS split over the shards of ``mesh`` and
+    the sources replicated (they are small for every configuration: <= 52k
+    points; the ring schedule in shm3d_torch.parallel is for source counts
+    that do not fit a device).  Each shard makes one plain single-device
+    kernel call on its rows, and the rows are gathered back onto the first
+    device in order.  The rows split at multiples of the kernel's query
+    block and every call takes the whole launch's source chunks, so the
+    field is bitwise equal to one launch over all rows."""
+    step = row_blocks(queries.shape[0], len(mesh))
+    chunk = (yukawa_chunk_len(queries.shape[0], src_points.shape[0], queries.device)
+             if queries.device.type == "cuda" else None)
+    out = [yukawa_field(queries[k * step:(k + 1) * step].to(dev), p, v, lam, chunk=chunk)
+           for k, (dev, p, v) in enumerate(zip(mesh.devices, broadcast(src_points, mesh),
+                                               broadcast(src_vectors, mesh)))]
+    return torch.cat([o.to(mesh.first) for o in out])
+
+
 def yukawa_field_shell(
     plan: DeviceShellPlan,
     src_points: torch.Tensor,
     src_vectors: torch.Tensor,
     lam,
     grid_n: int,
-) -> torch.Tensor:
+    mesh=None,
+):
     """Shell-decomposed Steps 1-2: the Yukawa kernel on the coarse lattice
-    and the shell nodes, then the interpolated assembly (n^3, 3)."""
-    Y_coarse = yukawa_field(plan.coarse_pos, src_points, src_vectors, lam)
-    Y_shell = yukawa_field(plan.shell_pos, src_points, src_vectors, lam)
-    return assemble_shell_field(Y_coarse, Y_shell, plan.shell_idx, plan.lo,
-                                plan.w, grid_n, plan.m)
+    and the shell nodes, then the interpolated assembly (n^3, 3).  With a
+    ``mesh`` (shm3d_torch.parallel.device_mesh) both launches are split by
+    rows over its shards (``_rowsharded``) and the field, bitwise equal to
+    the single-device one, is returned as its z-slabs (``Shards``)."""
+    if mesh is None:
+        Y_coarse = yukawa_field(plan.coarse_pos, src_points, src_vectors, lam)
+        Y_shell = yukawa_field(plan.shell_pos, src_points, src_vectors, lam)
+    else:
+        Y_coarse = _rowsharded(plan.coarse_pos, src_points, src_vectors, lam, mesh)
+        Y_shell = _rowsharded(plan.shell_pos, src_points, src_vectors, lam, mesh)
+    Y = assemble_shell_field(Y_coarse, Y_shell, plan.shell_idx, plan.lo,
+                             plan.w, grid_n, plan.m)
+    return Y if mesh is None else shard_rows(Y, mesh)

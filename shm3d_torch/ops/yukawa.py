@@ -13,14 +13,18 @@ underflow in float32 (the normalized direction is invariant to exp(-m)).
   sum relative to it, in log2 units; then the merge in chunk order).
 - ``yukawa_field_cuda``: wrapper of the hand-written Hopper kernels
   (``shm3d_torch/csrc/yukawa.cu``: the chunked partial sums and their
-  merge); float32 CUDA tensors only.
-- ``yukawa_field``: dispatch on the tensor's device -- CPU tensors take the
-  plain version, CUDA tensors launch the kernel or raise.
+  merge); float32 CUDA tensors only.  ``yukawa_partials_cuda`` and
+  ``yukawa_merge_cuda`` launch the two kernels one at a time (the ring
+  schedule merges the partials of several source shards).
+- ``yukawa_field``, ``yukawa_partials``, ``yukawa_merge``: dispatch on the
+  tensor's device -- CPU tensors take the plain version, CUDA tensors
+  launch the kernel or raise.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -30,10 +34,19 @@ _FAR = 1e17
 
 LOG2E = 1.4426950408889634  # exponents of the chunked form are in log2 units
 
-# Launches of the CUDA kernel in this process (incremented by
-# ``yukawa_field_cuda`` only, once per call; a call launches the partial
-# kernel and its merge).
+# Queries a block of the partial kernel (QBLOCK in csrc/yukawa_common.cuh):
+# a query's sum depends on the block's other queries (a thread's four
+# queries rebase together), so launches over rows split at multiples of it,
+# with one chunk length, give each row the arithmetic of one launch.
+QUERY_BLOCK = 1024
+
+# Launches of the CUDA kernels in this process: KERNEL_LAUNCHES counts
+# ``yukawa_field_cuda`` calls (each launches the partial kernel and its
+# merge), PARTIAL_LAUNCHES and MERGE_LAUNCHES the split entry points
+# ``yukawa_partials_cuda`` and ``yukawa_merge_cuda``, once per call each.
 KERNEL_LAUNCHES = 0
+PARTIAL_LAUNCHES = 0
+MERGE_LAUNCHES = 0
 
 
 def pad_sources(points: torch.Tensor, vectors: torch.Tensor, block: int):
@@ -147,6 +160,12 @@ def _index(device: torch.device) -> int:
     return device.index if device.index is not None else torch.cuda.current_device()
 
 
+def _raise_on(lib, err: int, what: str) -> None:
+    if err != 0:
+        msg = lib.shm3d_cuda_error_string(err).decode()
+        raise RuntimeError(f"{what} launch failed: {msg} ({err})")
+
+
 def yukawa_chunk_len(Q: int, S: int, device) -> int:
     """Sources a chunk of the kernel's split holds for Q queries and S
     sources on a CUDA ``device`` (a multiple of 256): the split that fills
@@ -165,9 +184,12 @@ def yukawa_field_cuda(
     src_vectors: torch.Tensor,
     lam: float,
     normalize: bool = True,
+    chunk: Optional[int] = None,
 ) -> torch.Tensor:
     """Launch the Hopper kernel on the current stream (float32, contiguous
-    (N, 3) CUDA tensors on one device).  Does not synchronize."""
+    (N, 3) CUDA tensors on one device).  ``chunk``: sources a chunk (a
+    multiple of 256; default ``yukawa_chunk_len``, the split that fills the
+    card).  Does not synchronize."""
     global KERNEL_LAUNCHES
     device = queries.device
     _check_cuda_f32("queries", queries, device)
@@ -184,7 +206,9 @@ def yukawa_field_cuda(
 
     lib = load_library()
     Q, S = queries.shape[0], src_points.shape[0]
-    chunk = yukawa_chunk_len(Q, S, device)
+    chunk = yukawa_chunk_len(Q, S, device) if chunk is None else int(chunk)
+    if chunk <= 0 or chunk % 256:
+        raise ValueError(f"chunk={chunk}: a positive multiple of 256 is required")
     part = torch.empty((-(-S // chunk), Q, 4), dtype=torch.float32, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
@@ -202,11 +226,107 @@ def yukawa_field_cuda(
             ctypes.c_int(_index(device)),
             ctypes.c_void_p(stream),
         )
-    if err != 0:
-        msg = lib.shm3d_cuda_error_string(err).decode()
-        raise RuntimeError(f"yukawa kernel launch failed: {msg} ({err})")
+    _raise_on(lib, err, "yukawa kernel")
     KERNEL_LAUNCHES += 1
     return out
+
+
+def yukawa_partials_cuda(
+    queries: torch.Tensor,
+    src_points: torch.Tensor,
+    src_vectors: torch.Tensor,
+    lam: float,
+    chunk: int,
+) -> torch.Tensor:
+    """Launch the partial kernel alone on the current stream of the
+    queries' device: (C, Q, 4) float32 partials over source chunks of
+    ``chunk`` sources (a multiple of 256; ``yukawa_chunk_len``), C =
+    ceil(S / chunk).  Does not synchronize."""
+    global PARTIAL_LAUNCHES
+    device = queries.device
+    _check_cuda_f32("queries", queries, device)
+    _check_cuda_f32("src_points", src_points, device)
+    _check_cuda_f32("src_vectors", src_vectors, device)
+    if src_points.shape != src_vectors.shape:
+        raise ValueError("src_points and src_vectors must have the same shape")
+    Q, S = queries.shape[0], src_points.shape[0]
+    if S == 0:
+        raise ValueError("at least one source is required")
+    if chunk <= 0 or chunk % 256:
+        raise ValueError(f"chunk={chunk}: a positive multiple of 256 is required")
+    part = torch.empty((-(-S // chunk), Q, 4), dtype=torch.float32, device=device)
+    if Q == 0:
+        return part
+    from .._build import load_library
+
+    lib = load_library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.shm3d_yukawa_partials_f32(
+            ctypes.c_void_p(queries.data_ptr()),
+            ctypes.c_void_p(src_points.data_ptr()),
+            ctypes.c_void_p(src_vectors.data_ptr()),
+            ctypes.c_void_p(part.data_ptr()),
+            ctypes.c_int64(Q), ctypes.c_int64(S), ctypes.c_int64(chunk),
+            ctypes.c_float(float(lam) * LOG2E),
+            ctypes.c_int(_index(device)), ctypes.c_void_p(stream),
+        )
+    _raise_on(lib, err, "yukawa partial kernel")
+    PARTIAL_LAUNCHES += 1
+    return part
+
+
+def yukawa_merge_cuda(partials: torch.Tensor, normalize: bool = True) -> torch.Tensor:
+    """Launch the merge kernel alone on the current stream of the partials'
+    device: (C, Q, 4) float32 partials, any C, merged in order along C ->
+    (Q, 3).  Does not synchronize."""
+    global MERGE_LAUNCHES
+    device = partials.device
+    if device.type != "cuda" or partials.dtype != torch.float32:
+        raise TypeError(f"partials: expected float32 on a CUDA device, got "
+                        f"{partials.dtype} on {device}")
+    if partials.dim() != 3 or partials.shape[2] != 4 or partials.shape[0] == 0:
+        raise ValueError(f"partials: expected shape (C >= 1, Q, 4), got {tuple(partials.shape)}")
+    if not partials.is_contiguous():
+        raise ValueError("partials: expected a contiguous tensor")
+    C, Q = partials.shape[0], partials.shape[1]
+    out = torch.empty((Q, 3), dtype=torch.float32, device=device)
+    if Q == 0:
+        return out
+    from .._build import load_library
+
+    lib = load_library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.shm3d_yukawa_merge_f32(
+            ctypes.c_void_p(partials.data_ptr()), ctypes.c_void_p(out.data_ptr()),
+            ctypes.c_int64(Q), ctypes.c_int64(C), ctypes.c_int(1 if normalize else 0),
+            ctypes.c_int(_index(device)), ctypes.c_void_p(stream),
+        )
+    _raise_on(lib, err, "yukawa merge kernel")
+    MERGE_LAUNCHES += 1
+    return out
+
+
+def yukawa_partials(queries, src_points, src_vectors, lam, chunk: int,
+                    q_tile: int = 2048) -> torch.Tensor:
+    """Partials dispatch: the plain version for CPU tensors, the partial
+    kernel for CUDA tensors (``q_tile``: the plain version's query tile)."""
+    if queries.device.type == "cpu":
+        return yukawa_partials_torch(queries, src_points, src_vectors, lam, chunk, q_tile)
+    if queries.device.type == "cuda":
+        return yukawa_partials_cuda(queries, src_points, src_vectors, float(lam), chunk)
+    raise ValueError(f"unsupported device {queries.device}")
+
+
+def yukawa_merge(partials: torch.Tensor, normalize: bool = True) -> torch.Tensor:
+    """Merge dispatch: the plain version for CPU tensors, the merge kernel
+    for CUDA tensors."""
+    if partials.device.type == "cpu":
+        return yukawa_merge_torch(partials, normalize)
+    if partials.device.type == "cuda":
+        return yukawa_merge_cuda(partials, normalize)
+    raise ValueError(f"unsupported device {partials.device}")
 
 
 def yukawa_field(
@@ -215,13 +335,15 @@ def yukawa_field(
     src_vectors: torch.Tensor,
     lam,
     normalize: bool = True,
+    chunk: Optional[int] = None,
 ) -> torch.Tensor:
     """Steps 1-2 dispatch: the plain version for CPU tensors, the CUDA
-    kernel for CUDA tensors (which raises on what it does not take)."""
+    kernel for CUDA tensors (which raises on what it does not take);
+    ``chunk``: the kernel's source chunk (``yukawa_field_cuda``)."""
     if queries.device.type == "cpu":
         return yukawa_field_torch(queries, src_points, src_vectors, lam,
                                   normalize=normalize)
     if queries.device.type == "cuda":
         return yukawa_field_cuda(queries, src_points, src_vectors, float(lam),
-                                 normalize=normalize)
+                                 normalize=normalize, chunk=chunk)
     raise ValueError(f"unsupported device {queries.device}")

@@ -8,7 +8,8 @@ sweeps on the coarsest level.  With pin masks every level smooths on
 H + diag(mask * 6/cell^2), a Dirichlet penalty at the constraint surface
 that makes the V-cycle close to the projected operator the outer CG solves.
 
-All functions are out of place: no caller's tensor is modified.
+All functions are out of place: no caller's tensor is modified.  The slab
+V-cycle (``v_cycle_slabs``) runs the same cycle on a mesh of z-slabs.
 """
 
 from __future__ import annotations
@@ -19,6 +20,8 @@ import numpy as np
 import torch
 
 from ..ops import stencil
+from ..parallel import slab
+from ..parallel.shards import Shards, halo_planes
 
 _OMEGA = 2.0 / 3.0
 
@@ -65,34 +68,55 @@ def _jacobi(u, b, cell, diag, sweeps: int, w=None):
     return u
 
 
+def _restrict_axis(r, ax: int, lo=None, hi=None):
+    """``restrict`` along one axis.  ``lo`` / ``hi``: along axis 0 of a
+    z-slab, the previous slab's last plane and the next slab's first (None
+    at the domain's ends, where the clamped-boundary terms apply)."""
+    r = r.movedim(ax, 0)
+    even, odd = r[0::2], r[1::2]
+    c = 0.75 * (even + odd)  # a new tensor: the updates below are local
+    if lo is None:
+        c[1:] += 0.25 * odd[:-1]
+    else:
+        c += 0.25 * torch.cat([lo, odd[:-1]])
+    if hi is None:
+        c[:-1] += 0.25 * even[1:]
+    else:
+        c += 0.25 * torch.cat([even[1:], hi])
+    # clamped-boundary contributions (mirror of the prolongation clamp)
+    if lo is None:
+        c[0] += 0.25 * even[0]
+    if hi is None:
+        c[-1] += 0.25 * odd[-1]
+    return (0.5 * c).movedim(0, ax)
+
+
 def restrict(r: torch.Tensor) -> torch.Tensor:
     """(n, n, n) -> (n/2, n/2, n/2): adjoint of ``prolong`` scaled by 1/8
     (separable full weighting; constants restrict to constants)."""
     for ax in range(3):
-        r = r.movedim(ax, 0)
-        even, odd = r[0::2], r[1::2]
-        c = 0.75 * (even + odd)  # a new tensor: the updates below are local
-        c[1:] += 0.25 * odd[:-1]
-        c[:-1] += 0.25 * even[1:]
-        # clamped-boundary contributions (mirror of the prolongation clamp)
-        c[0] += 0.25 * even[0]
-        c[-1] += 0.25 * odd[-1]
-        r = (0.5 * c).movedim(0, ax)
+        r = _restrict_axis(r, ax)
     return r.contiguous()
+
+
+def _prolong_axis(e, ax: int, lo=None, hi=None):
+    """``prolong`` along one axis; ``lo`` / ``hi`` as in ``_restrict_axis``
+    (the clamp applies where they are None)."""
+    e = e.movedim(ax, 0)
+    m = e.shape[0]
+    left = torch.cat([e[:1] if lo is None else lo, e[:-1]], dim=0)
+    right = torch.cat([e[1:], e[-1:] if hi is None else hi], dim=0)
+    out = torch.empty((2 * m,) + tuple(e.shape[1:]), dtype=e.dtype, device=e.device)
+    out[0::2] = 0.75 * e + 0.25 * left
+    out[1::2] = 0.75 * e + 0.25 * right
+    return out.movedim(0, ax)
 
 
 def prolong(e: torch.Tensor) -> torch.Tensor:
     """(m, m, m) -> (2m, 2m, 2m) separable cell-centred linear interpolation
     (weights 3/4, 1/4; clamped at the mirrored boundaries)."""
     for ax in range(3):
-        e = e.movedim(ax, 0)
-        m = e.shape[0]
-        left = torch.cat([e[:1], e[:-1]], dim=0)
-        right = torch.cat([e[1:], e[-1:]], dim=0)
-        out = torch.empty((2 * m,) + tuple(e.shape[1:]), dtype=e.dtype, device=e.device)
-        out[0::2] = 0.75 * e + 0.25 * left
-        out[1::2] = 0.75 * e + 0.25 * right
-        e = out.movedim(0, ax)
+        e = _prolong_axis(e, ax)
     return e.contiguous()
 
 
@@ -140,9 +164,136 @@ def build_pin_masks(nodes8: torch.Tensor, shape, dtype: torch.dtype,
 
 
 def make_node_preconditioner(shape, cell: float, pins=None):
-    """One V-cycle as a preconditioner on flat (N,) node vectors."""
+    """One V-cycle as a preconditioner on flat (N,) node vectors, or on
+    their z-slabs (``Shards``; ``pins`` from ``build_slab_pin_masks``)."""
 
     def precond(r_flat):
+        if isinstance(r_flat, Shards):
+            n = shape[0]
+            slabs = [p.reshape(-1, n, n) for p in r_flat.parts]
+            out = v_cycle_slabs(slabs, cell, pins=pins)
+            return Shards([o.reshape(-1) for o in out], r_flat.mesh)
         return v_cycle(r_flat.reshape(shape), cell, pins=pins).reshape(-1)
 
     return precond
+
+
+# --- the V-cycle on z-slabs ----------------------------------------------
+#
+# Each shard holds (nz, n, n) planes of a level.  The smoother, the residual,
+# restrict and prolong run on the slabs with one-plane halos
+# (shards.halo_planes) and take every node through the single-device
+# operations in their order; restrict's clamped-boundary terms and prolong's
+# clamp apply at the domain's ends only.  Below the level where a slab would
+# not restrict to whole planes, or at the coarsest, the level is gathered to
+# the first shard's device, the single-device remainder runs there and the
+# correction is scattered back.  So one slab V-cycle is bitwise equal to
+# ``v_cycle`` on one device of the same type.
+
+
+def _slab_level(n: int, nz: int, coarsest: int) -> bool:
+    """A level of n^3 nodes, nz planes a slab, runs on the slabs."""
+    return n > coarsest and nz % 2 == 0
+
+
+def slab_gather_level(n: int, n_shards: int, coarsest: int = 8):
+    """(level, n at that level) where the slab V-cycle gathers; level 0 is
+    the finest."""
+    level, nz = 0, n // n_shards
+    while _slab_level(n, nz, coarsest):
+        level, n, nz = level + 1, n // 2, nz // 2
+    return level, n
+
+
+def _Hp_slabs(u, cell, w):
+    r = [-x for x in slab.laplacian_apply(u, cell)]
+    return r if w is None else [rk + wk * uk for rk, wk, uk in zip(r, w, u)]
+
+
+def _jacobi_slabs(u, b, cell, diag, sweeps: int, w=None):
+    d = [diag] * len(u) if w is None else [diag + wk for wk in w]
+    for _ in range(sweeps):
+        Hu = _Hp_slabs(u, cell, w)
+        u = [uk + _OMEGA * (bk - hk) / dk for uk, bk, hk, dk in zip(u, b, Hu, d)]
+    return u
+
+
+def restrict_slabs(parts):
+    """``restrict`` of an (n, n, n) field held as z-slabs of an even number
+    of planes each."""
+    lo, hi = halo_planes(parts)
+    out = []
+    for r, below, above in zip(parts, lo, hi):
+        r = _restrict_axis(r, 0, below, above)
+        for ax in (1, 2):
+            r = _restrict_axis(r, ax)
+        out.append(r.contiguous())
+    return out
+
+
+def prolong_slabs(parts):
+    """``prolong`` of an (m, m, m) field held as z-slabs."""
+    lo, hi = halo_planes(parts)
+    out = []
+    for e, below, above in zip(parts, lo, hi):
+        e = _prolong_axis(e, 0, below, above)
+        for ax in (1, 2):
+            e = _prolong_axis(e, ax)
+        out.append(e.contiguous())
+    return out
+
+
+def _gather(parts):
+    first = parts[0].device
+    return torch.cat([p.to(first) for p in parts])
+
+
+def v_cycle_slabs(b, cell: float, nu: int = 1, coarsest: int = 8, pins=None):
+    """``v_cycle`` on z-slabs: ``b`` is a list of (nz, n, n) slabs, one per
+    shard in order; ``pins`` from ``build_slab_pin_masks``.  Returns the
+    correction as slabs on the same devices."""
+    nz = b[0].shape[0]
+    if not _slab_level(nz * len(b), nz, coarsest):
+        e = v_cycle(_gather(b), cell, nu, coarsest, pins)
+        return [blk.to(x.device) for blk, x in zip(torch.split(e, nz), b)]
+    w = None
+    if pins is not None and len(pins) > 0:
+        w = [m * (6.0 / (cell * cell)) for m in pins[0]]
+        pins_c = pins[1:]
+    else:
+        pins_c = None if pins is None else ()
+    diag = _H_diag(cell)
+    u = _jacobi_slabs([torch.zeros_like(x) for x in b], b, cell, diag, nu, w)
+    r = [bk - hk for bk, hk in zip(b, _Hp_slabs(u, cell, w))]
+    e = v_cycle_slabs(restrict_slabs(r), 2.0 * cell, nu, coarsest, pins_c)
+    u = [uk + pk for uk, pk in zip(u, prolong_slabs(e))]
+    return _jacobi_slabs(u, b, cell, diag, nu, w)
+
+
+def build_slab_pin_masks(nodes8: torch.Tensor, n: int, mesh, dtype: torch.dtype,
+                         coarsest: int = 8):
+    """``build_pin_masks`` for the slab V-cycle: each shard marks its own
+    nodes; a level that runs on the slabs is a list of (nz, n, n) slabs,
+    the gathered levels below it full tensors on the first device."""
+    nz = n // len(mesh)
+    size = nz * n * n
+    flat = np.unique(nodes8.reshape(-1).cpu().numpy())
+    level = []
+    for k, dev in enumerate(mesh.devices):
+        m = torch.zeros(size, dtype=dtype, device=dev)
+        own = flat[(flat >= k * size) & (flat < (k + 1) * size)] - k * size
+        m[torch.as_tensor(own, device=dev)] = 1.0
+        level.append(m.reshape(nz, n, n))
+    masks = []
+    while True:
+        if isinstance(level, list) and not _slab_level(n, nz, coarsest):
+            level = _gather(level)
+        masks.append(level)
+        if not (n > coarsest and n % 2 == 0):
+            break
+        if isinstance(level, list):
+            level = [torch.clamp(x * 8.0, 0.0, 1.0) for x in restrict_slabs(level)]
+        else:
+            level = torch.clamp(restrict(level) * 8.0, 0.0, 1.0)
+        n, nz = n // 2, nz // 2
+    return tuple(masks)

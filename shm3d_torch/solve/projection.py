@@ -20,6 +20,14 @@ neither factor and the solver projects each iterate through the host splu
 factor of the full Gram matrix (``host_gram_factor``).
 
 Both caps are read from this module at call time, so tests can patch them.
+
+On a device mesh the node vectors are z-slabs (``Shards``) and the rows'
+tables are ``NodeGather`` (where each row's nodes live) and ``SlabAt`` (A^T's
+table cut per slab).  A u gathers the values of each row's 8 nodes from
+their slabs onto the first device and sums them there in the single-device
+order; A^T y gives each slab its own nodes from the (m,) vector, broadcast
+to its device.  The (m,) vectors, the factors and the host splu stay on the
+first device.  So both are bitwise equal to their single-device forms.
 """
 
 from __future__ import annotations
@@ -29,6 +37,8 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+
+from ..parallel.shards import Shards, broadcast
 
 # copied from shm3d/solve/projection.py (ORTHO_GRAM_CAP, TFORM_FULL_CAP,
 # TFORM_FULL_EPS): the same size picks the same tier in both packages
@@ -40,8 +50,38 @@ TFORM_FULL_EPS = 3e-6
 TFORM_EPS_ATTEMPTS = 4
 
 
-def a_apply(u: torch.Tensor, nodes8: torch.Tensor, coeffs8: torch.Tensor) -> torch.Tensor:
-    """A u: (N,) -> (m,) trilinear evaluation at the pinned points."""
+class NodeGather:
+    """Where the entries of an (m, w) node table live on a mesh of z-slabs
+    of ``slab_len`` nodes: per shard the entries' flat positions (on the
+    first device) and their slab-local node ids (on the shard's device)."""
+
+    def __init__(self, nodes, mesh, slab_len: int):
+        nodes = np.asarray(nodes.cpu() if isinstance(nodes, torch.Tensor) else nodes,
+                           np.int64)
+        self.shape = nodes.shape
+        self.mesh = mesh
+        flat = nodes.reshape(-1)
+        owner = flat // slab_len
+        self.pos, self.loc = [], []
+        for k, dev in enumerate(mesh.devices):
+            pos = np.nonzero(owner == k)[0]
+            self.pos.append(torch.as_tensor(pos, device=mesh.first))
+            self.loc.append(torch.as_tensor(flat[pos] - k * slab_len, device=dev))
+
+    def values(self, u: Shards) -> torch.Tensor:
+        """u at the table's nodes, (m, w) on the first device."""
+        out = torch.empty(int(np.prod(self.shape)), dtype=u.dtype, device=self.mesh.first)
+        for part, pos, loc in zip(u.parts, self.pos, self.loc):
+            out.index_copy_(0, pos, part[loc].to(out.device))
+        return out.reshape(self.shape)
+
+
+def a_apply(u, nodes8, coeffs8: torch.Tensor) -> torch.Tensor:
+    """A u: (N,) -> (m,) trilinear evaluation at the pinned points; for
+    z-slabs ``nodes8`` is their ``NodeGather`` and A u lands on the first
+    device."""
+    if isinstance(u, Shards):
+        return (nodes8.values(u) * coeffs8).sum(dim=1)
     return (u[nodes8] * coeffs8).sum(dim=1)
 
 
@@ -89,11 +129,30 @@ def at_table(nodes8: np.ndarray, coeffs8: np.ndarray, device,
                    torch.as_tensor(at_c, device=device).to(dtype))
 
 
-def at_apply(y: torch.Tensor, at: AtTable, n: int) -> torch.Tensor:
+class SlabAt:
+    """A^T's table cut per z-slab of ``slab_len`` nodes: each shard's
+    touched nodes (slab-local ids), their rows and coefficients, on the
+    shard's device."""
+
+    def __init__(self, at: AtTable, mesh, slab_len: int):
+        self.mesh, self.slab_len = mesh, slab_len
+        self.parts = []
+        for k, dev in enumerate(mesh.devices):
+            sel = (at.nodes >= k * slab_len) & (at.nodes < (k + 1) * slab_len)
+            self.parts.append(AtTable((at.nodes[sel] - k * slab_len).to(dev),
+                                      at.rows[sel].to(dev), at.coef[sel].to(dev)))
+
+
+def at_apply(y: torch.Tensor, at, n: int):
     """A^T y: (m,) -> (N,), a gather over the transposed table written to
     the touched nodes once each.  No two threads add into one address, so
     the sums have one order on every device and in every run (a
-    scatter-add through CUDA atomics does not)."""
+    scatter-add through CUDA atomics does not).  With a ``SlabAt`` each
+    slab gathers its own nodes and the result is ``Shards``."""
+    if isinstance(at, SlabAt):
+        return Shards([torch.zeros(at.slab_len, dtype=y.dtype, device=yk.device).index_copy_(
+            0, t.nodes, (t.coef * yk[t.rows]).sum(dim=1))
+            for t, yk in zip(at.parts, broadcast(y, at.mesh))], at.mesh)
     out = torch.zeros(n, dtype=y.dtype, device=y.device)
     return out.index_copy_(0, at.nodes, (at.coef * y[at.rows]).sum(dim=1))
 
@@ -288,6 +347,7 @@ def make_projector(nodes8: torch.Tensor, coeffs8: torch.Tensor, gram: GramTable,
                    n: int, at: AtTable):
     """P v = v - A^T (A A^T)^{-1} A v through the whitened factor of
     ``gram`` (``tmat`` or ``bmat``); ``at`` is A^T's table for ``tmat``.
+    With a ``NodeGather`` and a ``SlabAt`` it projects z-slabs.
     A table with neither factor takes the solver's host-projected loop
     instead."""
     if gram.tmat is not None:
@@ -308,6 +368,19 @@ def make_projector(nodes8: torch.Tensor, coeffs8: torch.Tensor, gram: GramTable,
         raise ValueError("GramTable has neither bmat nor tmat: project through "
                          "the host factor (host_gram_factor)")
     B = gram.bmat
+    if isinstance(nodes8, NodeGather):
+        touched = NodeGather(gram.touched[:, None], nodes8.mesh, n // len(nodes8.mesh))
+
+        def project_slabs(v):
+            w = B @ touched.values(v)[:, 0]
+            corr = -(B.T @ w)
+            # each touched node once: the single-device index_add's one
+            # addition, without atomics
+            return Shards([part.index_copy(0, loc, part[loc] + corr[pos].to(part.device))
+                           for part, pos, loc in zip(v.parts, touched.pos, touched.loc)],
+                          v.mesh)
+
+        return project_slabs
 
     def project(v):
         w = B @ v[gram.touched]

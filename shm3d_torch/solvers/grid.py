@@ -27,6 +27,17 @@ solve pins a spatially separated subset of the rows, and the defect
 correction projects with all of them through the host loop); otherwise the
 host-projected loop (each iteration's two Gram solves by the host splu
 factor of all rows).  The MINRES-on-KKT comparison method is not ported.
+
+``GridSolver(mesh=)`` runs the same solve on a device mesh
+(shm3d_torch.parallel.device_mesh, 1-D or 2-D): Step 1 splits the shell
+kernel's rows over the shards (or runs the dense kernel on the ring
+schedule), and Step 3 holds every node vector as z-slabs (``Shards``): the
+stencils and the V-cycle with one-plane halos, A u and A^T y through the
+rows' gather tables, CG dots summed in shard order, the (m,) vectors and
+factors on the mesh's first device.  The greedy paths, the mean shift and
+the result gather onto the first device.  A grid whose n does not split
+over the mesh (or leaves a shard fewer than two planes) is solved on the
+first device, as in shm3d, and ``last_stats["mesh"]["fallback"]`` says so.
 """
 
 from __future__ import annotations
@@ -51,6 +62,9 @@ from ..ops import farfield, stencil
 from ..ops.wavefront import greedy_integrate_wavefront
 from ..ops.yukawa import yukawa_field
 from ..oracle.reference import integrate_greedily_grid
+from ..parallel import slab
+from ..parallel.ring import yukawa_field_ring
+from ..parallel.shards import DeviceMesh, Shards, shard_rows
 from ..solve import krylov, multigrid, projection
 from ..utils import checks
 from ..utils.timing import PhaseTimer
@@ -101,13 +115,47 @@ def _node_positions_device(bbox_min, cell_size: float, n: int, dtype, device):
     return pos + torch.as_tensor(bbox_min, dtype=dtype, device=device)[None, :]
 
 
-def _rhs_div(Y: torch.Tensor, cell_size: float, shape, guard_nans: bool) -> torch.Tensor:
-    """Adjoint divergence of the normalized field; on meshes the NaN rows of
-    a node coincident with a source are zeroed (as the reference does)."""
-    div = stencil.divergence_apply(Y.reshape(*shape, 3), cell_size).reshape(-1)
-    if guard_nans:
-        div = torch.where(torch.isfinite(div), div, torch.zeros_like(div))
-    return div
+def _lap(u, cell_size: float, shape):
+    """L u of a flat node vector, or of its z-slabs."""
+    if isinstance(u, Shards):
+        n = shape[-1]
+        lu = slab.laplacian_apply([p.reshape(-1, n, n) for p in u.parts], cell_size)
+        return Shards([x.reshape(-1) for x in lu], u.mesh)
+    return stencil.laplacian_apply(u.reshape(shape), cell_size).reshape(-1)
+
+
+def _rhs_div(Y, cell_size: float, shape, guard_nans: bool):
+    """Adjoint divergence of the normalized field (flat, or z-slabs); on
+    meshes the NaN rows of a node coincident with a source are zeroed (as
+    the reference does)."""
+
+    def guard(div):
+        if guard_nans:
+            div = torch.where(torch.isfinite(div), div, torch.zeros_like(div))
+        return div
+
+    if isinstance(Y, Shards):
+        n = shape[-1]
+        div = slab.divergence_apply([p.reshape(-1, n, n, 3) for p in Y.parts], cell_size)
+        return Shards([guard(d.reshape(-1)) for d in div], Y.mesh)
+    return guard(stencil.divergence_apply(Y.reshape(*shape, 3), cell_size).reshape(-1))
+
+
+def _norm(v) -> float:
+    return float(torch.linalg.vector_norm(v)) if isinstance(v, torch.Tensor) else float(v.norm())
+
+
+def _host(v) -> np.ndarray:
+    """A node vector or field (or its z-slabs) as a float64 host array."""
+    if isinstance(v, Shards):
+        v = v.gather()
+    return v.detach().cpu().numpy().astype(np.float64)
+
+
+def _on_device(a: np.ndarray, like, dtype: torch.dtype):
+    """Host array ``a`` where ``like`` lives (split into its z-slabs)."""
+    t = torch.as_tensor(a, dtype=dtype, device=like.device)
+    return shard_rows(t, like.mesh) if isinstance(like, Shards) else t
 
 
 def _solve_pinned(b, nodes8, coeffs8, gram, at, cell_size: float, shape, tol: float,
@@ -127,13 +175,13 @@ def _solve_pinned(b, nodes8, coeffs8, gram, at, cell_size: float, shape, tol: fl
 
     def matvec(u):
         # u stays in ker(A) along the recurrence, so P H P u = P (H u)
-        return proj(-stencil.laplacian_apply(u.reshape(shape), cell_size).reshape(-1))
+        return proj(-_lap(u, cell_size, shape))
 
     def precond(r):
         return proj(mg(r))
 
     Pb = proj(b)
-    rhs_mnorm = math.sqrt(abs(float(torch.dot(Pb, precond(Pb)))))
+    rhs_mnorm = math.sqrt(abs(float(krylov.dot(Pb, precond(Pb)))))
     res = krylov.cg(matvec, Pb, precond=precond, tol=tol, maxiter=maxiter,
                     rhs_mnorm=rhs_mnorm, stall_window=60)
     rel = res.residual / max(rhs_mnorm, torch.finfo(b.dtype).tiny)
@@ -175,13 +223,13 @@ def _solve_pinned_hostproj(b, nodes8, coeffs8, at, host_gram, cell_size: float, 
         return v - projection.at_apply(torch.as_tensor(z, device=v.device).to(v.dtype), at, N)
 
     def hmatvec(u):
-        return -stencil.laplacian_apply(u.reshape(shape), cell_size).reshape(-1)
+        return -_lap(u, cell_size, shape)
 
     # u = 0, so the first residual is P b and its preconditioned image
-    u = torch.zeros_like(b)
+    u = krylov.zeros_like(b)
     r = proj(b)
     z = proj(mg(r))
-    rz = torch.dot(r, z)
+    rz = krylov.dot(r, z)
     bnorm = math.sqrt(abs(float(rz)))
     threshold = tol * max(bnorm, float(np.finfo(np.float32).tiny))
     p = z
@@ -190,14 +238,14 @@ def _solve_pinned_hostproj(b, nodes8, coeffs8, at, host_gram, cell_size: float, 
     while resid > threshold and k < maxiter and since < HOSTPROJ_STALL_CHECKS:
         for _ in range(min(HOSTPROJ_CHECK_EVERY, maxiter - k)):
             Ap = proj(hmatvec(p))
-            pAp = torch.dot(p, Ap)
+            pAp = krylov.dot(p, Ap)
             # 0/0 after convergence inside a batch (residuals are read only
             # every HOSTPROJ_CHECK_EVERY iterations)
             alpha = torch.where(pAp != 0, rz / pAp, torch.zeros_like(pAp))
             u = u + alpha * p
             r = r - alpha * Ap
             z = proj(mg(r))
-            rz_new = torch.dot(r, z)
+            rz_new = krylov.dot(r, z)
             p = z + torch.where(rz != 0, rz_new / rz, torch.zeros_like(rz)) * p
             rz = rz_new
             k += 1
@@ -258,9 +306,8 @@ def _div64_np(Y64: np.ndarray, cell: float) -> np.ndarray:
     return out.reshape(-1)
 
 
-def project_f64(v: torch.Tensor, nodes8: torch.Tensor, coeffs8_64: torch.Tensor,
-                at64: projection.AtTable, gram_lu) -> torch.Tensor:
-    """Exact float64 P v for a float64 vector on its device: A v and
+def project_f64(v, nodes8, coeffs8_64: torch.Tensor, at64, gram_lu):
+    """Exact float64 P v for a float64 vector on its device (or z-slabs): A v and
     A^T z there (``at64``: A^T's table, float64), the (m,) Gram solve
     z = (A A^T)^{-1} A v on the host with the splu factor (the only
     crossing: two (m,) vectors)."""
@@ -269,11 +316,10 @@ def project_f64(v: torch.Tensor, nodes8: torch.Tensor, coeffs8_64: torch.Tensor,
     return v - projection.at_apply(z, at64, v.shape[0])
 
 
-def defect_f64(u: torch.Tensor, b: torch.Tensor, nodes8: torch.Tensor,
-               coeffs8_64: torch.Tensor, at64: projection.AtTable, gram_lu,
-               cell: float, shape) -> torch.Tensor:
+def defect_f64(u, b, nodes8, coeffs8_64: torch.Tensor, at64, gram_lu, cell: float,
+               shape):
     """P (b - H u) in float64 on the device (H = -L, so b - H u = b + L u)."""
-    r = b + stencil.laplacian_apply(u.reshape(shape), cell).reshape(-1)
+    r = b + _lap(u, cell, shape)
     return project_f64(r, nodes8, coeffs8_64, at64, gram_lu)
 
 
@@ -366,10 +412,16 @@ class GridSolver:
     cache key) and reused by later solves.
 
     ``device`` is required to exist: "cuda" without a visible card raises,
-    and nothing falls back to the CPU."""
+    and nothing falls back to the CPU.  With a ``mesh``
+    (shm3d_torch.parallel.device_mesh) the solve runs on its shards and
+    ``device`` is the mesh's first device."""
 
-    def __init__(self, device="cuda"):
-        self.device = resolve_device(device)
+    def __init__(self, device="cuda", mesh: Optional[DeviceMesh] = None):
+        self.mesh = mesh
+        self.device = resolve_device(device if mesh is None else mesh.first)
+        if mesh is not None:
+            for d in mesh.devices:
+                resolve_device(d)
         self._cache = {}
         self.last_stats = {}
 
@@ -402,6 +454,7 @@ class GridSolver:
 
         lam = math.sqrt(1.0 / (options.t_coef * cached["spacing"] ** 2))
         cell = float(grid.cell_size)
+        mesh = self._use_mesh(grid, tm)
 
         with tm.phase("steps 1&2 (Yukawa convolution + normalize)"):
             use_shell = (
@@ -415,7 +468,14 @@ class GridSolver:
                 self.last_stats["shell_nodes"] = int(plan.shell_idx.shape[0])
                 self.last_stats["coarse_nodes"] = int(plan.coarse_pos.shape[0])
                 Y = farfield.yukawa_field_shell(
-                    plan, cached["points"], cached["vectors"], lam, grid.n)
+                    plan, cached["points"], cached["vectors"], lam, grid.n, mesh=mesh)
+            elif mesh is not None:
+                queries = cached.get("slab_queries")
+                if queries is None:
+                    queries = shard_rows(_node_positions_device(
+                        grid.bbox_min, cell, grid.n, dtype, self.device), mesh)
+                    cached["slab_queries"] = queries
+                Y = yukawa_field_ring(queries, cached["points"], cached["vectors"], lam, mesh)
             else:
                 queries = cached.get("queries")
                 if queries is None:
@@ -429,11 +489,17 @@ class GridSolver:
 
         if options.fast_integration:
             u = None
+            if mesh is not None:
+                Y = Y.gather()
+                self.last_stats["mesh"]["step3"] = f"gathered onto {self.device}"
             phi = self._integrate_greedily(Y, grid, dtype, tm)
         else:
-            u = self._integrate_exact(Y, cached, grid, is_mesh, tol, options, tm)
+            c = cached if mesh is None else self._slab_tables(cached, grid)
+            u = self._integrate_exact(Y, c, grid, is_mesh, tol, options, tm)
             if options.refine_steps > 0 and dtype == torch.float32:
-                u = self._refine_or_skip(u, Y, cached, grid, is_mesh, options, tm)
+                u = self._refine_or_skip(u, Y, c, grid, is_mesh, options, tm)
+            if mesh is not None:
+                u, Y = u.gather(), Y.gather()
             phi = -u
 
         with tm.phase("mean shift along source"):
@@ -448,6 +514,47 @@ class GridSolver:
             self.last_stats["mem_peak_mb"] = (
                 torch.cuda.max_memory_allocated(self.device) / 1e6)
         return GridResult(phi, grid, Y, u_dev=u)
+
+    def _use_mesh(self, grid, tm) -> Optional[DeviceMesh]:
+        """The mesh this grid is solved on, or None: no mesh, or a grid whose
+        n does not split over it into slabs of two planes or more (solved
+        on the mesh's first device, recorded in last_stats["mesh"])."""
+        if self.mesh is None:
+            return None
+        P = len(self.mesh)
+        fallback = grid.n % P != 0 or grid.n // P < 2
+        if fallback:
+            tm.note(f"grid n={grid.n} does not split over {P} devices into slabs of "
+                    f">= 2 planes; falling back to single-device on {self.device}")
+        level, n_level = multigrid.slab_gather_level(grid.n, P)
+        self.last_stats["mesh"] = dict(
+            self.mesh.describe(), fallback=fallback,
+            step3="single device" if fallback else "z-slabs",
+            gather_level=None if fallback else level,
+            gather_n=None if fallback else n_level)
+        return None if fallback else self.mesh
+
+    def _slab_tables(self, cached, grid) -> dict:
+        """``cached`` with Step 3's row tables and pin masks for the mesh's
+        z-slabs (built once per discretization): the rows' node gathers,
+        A^T's tables cut per slab, and the slab pin masks.  Everything else
+        (coefficients, Gram factors, host arrays) is the first device's."""
+        view = cached.get("slab_tables")
+        if view is None:
+            mesh, slab_len = self.mesh, grid.total_nodes // len(self.mesh)
+            rows = projection.NodeGather(cached["nodes8"], mesh, slab_len)
+            at = projection.SlabAt(cached["at"], mesh, slab_len)
+            view = dict(cached, nodes8=rows, at=at,
+                        at64=projection.SlabAt(cached["at64"], mesh, slab_len))
+            if cached["pin_keep"] is None:
+                view.update(pin_nodes8=rows, pin_at=at)
+            else:
+                view.update(pin_nodes8=projection.NodeGather(cached["pin_nodes8"], mesh, slab_len),
+                            pin_at=projection.SlabAt(cached["pin_at"], mesh, slab_len))
+            view["pin_masks"] = multigrid.build_slab_pin_masks(
+                cached["pin_nodes8"], grid.n, mesh, cached["coeffs8"].dtype)
+            cached["slab_tables"] = view
+        return view
 
     def _integrate_greedily(self, Y, grid, dtype, tm) -> torch.Tensor:
         """Greedy integration of the normalized field: the reference's BFS
@@ -501,7 +608,7 @@ class GridSolver:
                     "grid Step 3 pinning", u,
                     lambda v: projection.a_apply(v, cached["pin_nodes8"],
                                                  cached["pin_coeffs8"]),
-                    b_scale=float(torch.linalg.vector_norm(u)))
+                    b_scale=_norm(u))
         return u
 
     @staticmethod
@@ -593,14 +700,15 @@ class GridSolver:
             correct = timed(lambda r, rel: self._correction_solve(
                 r.to(u.dtype), cached, grid, options, rel=rel), "correction_s")
             b = -_rhs_div(Y.to(torch.float64), cell, shape, is_mesh)
-            norm = lambda v: float(torch.linalg.vector_norm(v))
+            norm = _norm
             absmax = lambda v: float(v.abs().max())
             widen = lambda d: d.to(torch.float64)
             record = lambda rel: float("%.3e" % rel)
             x = u.to(torch.float64)
+            narrow = lambda x: x.to(u.dtype)
         else:
             # host NumPy float64 throughout
-            Y64 = Y.detach().cpu().numpy().astype(np.float64).reshape(*shape, 3)
+            Y64 = _host(Y).reshape(*shape, 3)
             div64 = _div64_np(Y64, cell)
             if is_mesh:
                 div64 = np.where(np.isfinite(div64), div64, 0.0)
@@ -608,13 +716,13 @@ class GridSolver:
             project = lambda v: projection.host_project(v, A, lu)
             defect = lambda v: defect_host(v, b, A, lu, cell, shape)
             correct = lambda r, rel: self._correction_solve(
-                torch.as_tensor(r, dtype=u.dtype, device=u.device), cached, grid,
-                options, rel=rel)
+                _on_device(r, u, u.dtype), cached, grid, options, rel=rel)
             norm = lambda v: float(np.linalg.norm(v))
             absmax = lambda v: float(np.abs(v).max())
-            widen = lambda d: d.detach().cpu().numpy().astype(np.float64)
+            widen = _host
             record = float
-            x = u.detach().cpu().numpy().astype(np.float64)
+            x = _host(u)
+            narrow = lambda x: _on_device(x, u, torch.float64).to(u.dtype)
 
         bnorm = max(norm(project(b)), tiny)
         x = project(x)  # restore A u = 0 before measuring the defect
@@ -636,7 +744,7 @@ class GridSolver:
             if stalled:
                 break
         self.last_stats["refine_rel_res"] = float(rel)
-        return torch.as_tensor(x, device=u.device).to(u.dtype)
+        return narrow(x)
 
     # copied from shm3d/solvers/grid.py (_correction_tol)
     @staticmethod

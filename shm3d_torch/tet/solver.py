@@ -30,7 +30,7 @@ behaviour): the bounded, adaptively sized Krylov chunks and their cost
 estimates (the TPU runtime's watchdog; here a solve is one CG), the
 stall-detector state threaded across chunks, and the stale-artifact gate of
 the vertex family's encoding version (this namespace never held an older
-encoding).  A device mesh raises NotImplementedError (ROADMAP A16).
+encoding).  A device mesh raises NotImplementedError (ROADMAP A16b).
 """
 
 from __future__ import annotations
@@ -357,7 +357,7 @@ class SignedHeatTetSolver:
         if mesh is not None:
             raise NotImplementedError(
                 "multi-device tet solves (a device mesh) are not ported yet "
-                "(ROADMAP A16)")
+                "(ROADMAP A16b)")
         self.device = resolve_device(device)
         self._cache = {}
         self.last_stats = {}

@@ -18,6 +18,8 @@ from typing import Callable
 import numpy as np
 import torch
 
+from ..parallel.shards import Shards
+
 ENABLED: bool = bool(os.environ.get("SHM3D_DEBUG", ""))
 
 
@@ -35,6 +37,8 @@ def enable(flag: bool = True) -> None:
 
 
 def _tensor(a) -> torch.Tensor:
+    if isinstance(a, Shards):
+        return a.gather()
     return a if isinstance(a, torch.Tensor) else torch.as_tensor(np.asarray(a))
 
 

@@ -52,9 +52,12 @@ def test_cli_grid_solve_and_export(tmp_path, fast):
 
 
 def test_cli_refuses_what_is_not_ported(tmp_path):
-    for flags in (["--devices", "2"], ["--slices", "2"]):
-        with pytest.raises(NotImplementedError, match="A16"):
-            cli.main([BUNNY, "--grid", "--device", "cpu", *flags])
+    # the grid domain runs on a mesh (tests/test_torch_parallel.py); the tet
+    # domain on a mesh is not ported yet
+    with pytest.raises(NotImplementedError, match="A16b"):
+        cli.main([BUNNY, "--device", "cpu", "--devices", "2"])
+    with pytest.raises(ValueError, match="--devices"):
+        cli.main([BUNNY, "--grid", "--device", "cpu", "--slices", "2"])
     if not torch.cuda.is_available():
         out = _run([BUNNY, "--grid"])  # the default device is cuda
         assert out.returncode != 0 and "cuda" in out.stderr
