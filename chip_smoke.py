@@ -93,7 +93,20 @@ Run from the repository root:  python3 chip_smoke.py
     the ring; the default tier on 4 shards against the reference; and 3
     shards, which do not split 128, taking the single-device path.  Every
     mesh solve runs with K1's plain versions replaced by a failing stub, so
-    none can reach them.
+    none can reach them;
+18. the tet domain on a device mesh of four shards of the one card (1 x 4
+    and 2 x 2) on knot_dec: one device builds the host artifact once in a
+    temporary disk cache (the CR family, then the vertex family by the mode
+    upgrade) and the mesh solvers read it; 1 cold + 2 warm CR solves on
+    1 x 4 and one on 2 x 2 (one phi, 2 x 2 = 1 x 4 bit for bit, within the
+    JAX package's bands and the residual limits), one vertex-path solve on
+    1 x 4 (sources exactly 0, within the vertex bands), every mesh solve
+    with K1's and K2's plain versions replaced by failing stubs; Step 3 on
+    the CR and the vertex path given the single device's Y, bitwise equal to
+    the single device's; K2 on the row blocks of the face operator and of
+    S H S, bitwise equal to one launch, timed against it; K1's ring at the
+    barycenters, 1 x 4 = 2 x 2 bit for bit and within 1e-4 of one launch;
+    the launches of one profiled warm mesh solve against one device's.
 
 Each grid phase prints the projector's tier it took (bmat, full-row,
 subsampled or host-projected).  Every kernel's launch count is set to 0 just before the path that runs it
@@ -267,6 +280,19 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def host_us(fn, reps: int) -> float:
+    """Mean host time of one fn() call in microseconds: the time to enqueue
+    its work, the device not waited for (a launch-bound solve pays it)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / reps * 1e6
+
+
 def chunks(yk, q, p) -> str:
     """The source split of the Yukawa kernel's launch on these shapes."""
     Q, S = int(q.shape[0]), int(p.shape[0])
@@ -274,9 +300,11 @@ def chunks(yk, q, p) -> str:
     return f"{-(-S // n)} chunks of {n} sources x {-(-Q // 1024)} query blocks"
 
 
-def profile_solve(label, fn, warm_s, smi, names=("sell_kernel", "yukawa_partial", "yukawa_merge")):
+def profile_solve(label, fn, warm_s, smi, names=("sell_kernel", "yukawa_partial", "yukawa_merge"),
+                  rounds=2):
     """One solve under torch.profiler, after one profiled warm-up (the
-    profiler's own start-up): the device time of its kernels (kernel events
+    profiler's own start-up; ``rounds=1`` skips it once the profiler has
+    started in this process): the device time of its kernels (kernel events
     only: an operator's row repeats its kernels' time), its wall time, the
     kernels that took most device time, and the device time of the kernels
     whose names contain ``names``.  ``warm_s``: the unprofiled warm solve's
@@ -286,7 +314,7 @@ def profile_solve(label, fn, warm_s, smi, names=("sell_kernel", "yukawa_partial"
     def dev_us(e):
         return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
 
-    for _ in range(2):
+    for _ in range(rounds):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -300,10 +328,12 @@ def profile_solve(label, fn, warm_s, smi, names=("sell_kernel", "yukawa_partial"
     top = ", ".join(f"{e.key[:40]} {dev_us(e) / 1e3:.1f} ms x{e.count}" for e in kernels[:6])
     ours = ", ".join(f"{n} {sum(dev_us(e) for e in kernels if n in e.key) / 1e3:.2f} ms "
                      f"x{sum(e.count for e in kernels if n in e.key)}" for n in names)
+    launches = sum(e.count for e in kernels)
     print(f"  profiled {label}: {total_ms:.1f} ms of kernel time in "
-          f"{sum(e.count for e in kernels)} launches, {wall_ms:.1f} ms of wall time "
+          f"{launches} launches, {wall_ms:.1f} ms of wall time "
           f"under the profiler (busy {total_ms / wall_ms:.1%}; {total_ms / 1e3 / warm_s:.1%} "
           f"of the unprofiled warm median {warm_s:.4f} s); {ours}; top: {top} ({smi})")
+    return dict(kernel_ms=total_ms, launches=launches)
 
 
 def compare(yk, q, p, v, lam, normalize):
@@ -629,13 +659,16 @@ def tet_phase(smi, dev, ceiling):
         print(f"  {name} bytes {nbytes / 1e9:.4f} GB: {at_ceiling:.4f} ms at the "
               f"measured ceiling ({at_ceiling / t_kernel:.1%} of the kernel's time), "
               f"{at_peak:.4f} ms at 3.35 TB/s ({at_peak / t_kernel:.1%})")
-    profile_solve("warm tet solve", lambda: solver.compute_distance(geom, opts),
-                  statistics.median(warm), smi)
+    prof = profile_solve("warm tet solve", lambda: solver.compute_distance(geom, opts),
+                         statistics.median(warm), smi)
     k1 = dict(launches=k1_launches, max_abs_err=k1_err, ms=k1_ms, plain_ms=k1_plain_ms,
               pairs=int(q.shape[0]) * int(pts.shape[0]), queries=int(q.shape[0]),
               sources=int(pts.shape[0]))
+    one = dict(warm_median_s=statistics.median(warm), iters=stats["iters"],
+               profile=prof, k2_ms=t_kernel, k1_ms=k1_ms, k2_per_solve=runs[-1]["k2"],
+               mem_peak_mb=stats["mem_peak_mb"])
     return k1, dict(launches=k2_launches, max_abs_err=err, ms=t_kernel, plain_ms=t_plain,
-                    bound_ms=bound_ms, library_ms=t_lib)
+                    bound_ms=bound_ms, library_ms=t_lib), one
 
 
 def timed_solves(solver, geom, opts, n, yk, pell):
@@ -662,17 +695,22 @@ def print_solves(runs):
               f"mem_peak_mb {st['mem_peak_mb']:.1f}, phases {json.dumps(st['phases'])}")
 
 
-def check_phi_bands(res, ref, what):
-    """phi statistics within VERTEX_BANDS of the JAX package's."""
+def check_bands(res, ref, bands, what):
+    """phi statistics within ``bands`` of the JAX package's."""
     phi = res.phi
     got = dict(min=float(phi.min()), max=float(phi.max()),
                mean_abs=float(np.abs(phi).mean()),
                src_mean_abs=float(np.abs(res.phi_at_sources()).mean()))
     for name, want in ref.items():
-        off, limit = abs(got[name] - want) / abs(want), VERTEX_BANDS[name]
+        off, limit = abs(got[name] - want) / abs(want), bands[name]
         print(f"  phi {name} {got[name]:.6f} (JAX package {want:.6f}): off by "
               f"{off:.3e} (limit {limit:g})")
         check(off <= limit, f"{what}: phi {name} within {limit:g} of the JAX package")
+
+
+def check_phi_bands(res, ref, what):
+    """phi statistics within VERTEX_BANDS of the JAX package's."""
+    check_bands(res, ref, VERTEX_BANDS, what)
 
 
 def k1_at(yk, cached, opts, smi, what):
@@ -1231,6 +1269,255 @@ def mesh_phase(smi, dev, sfu, geom, opts, main):
     return grid_mesh, grid_ring
 
 
+@contextlib.contextmanager
+def no_plain_sell(pell):
+    """K2's plain version replaced by a stub that fails the run: a mesh
+    solve on the card must launch the kernel on every row block."""
+    saved = pell.sell_matvec_torch
+
+    def stub(*args, **kwargs):
+        check(False, "a mesh solve on the card reached the plain sell_matvec_torch")
+
+    pell.sell_matvec_torch = stub
+    try:
+        yield
+    finally:
+        pell.sell_matvec_torch = saved
+
+
+def k2_blocks_at(pell, A1, A4, seed, smi, what):
+    """K2 on the row blocks of a mesh's operator ``A4`` against one launch
+    over the same operator ``A1`` (bitwise) and the plain version; the four
+    block launches and the one launch timed in turns.  Returns the numbers
+    for the kernels line."""
+    from shm3d_torch.parallel import RowSharded
+
+    check(isinstance(A4, RowSharded) and len(A4.blocks) == 4,
+          f"the mesh's {what} split into 4 sliced-ELL row blocks")
+    x = torch.as_tensor(np.random.default_rng(seed).standard_normal(A1.n_cols),
+                        dtype=torch.float32, device=A1.vals.device)
+    before = pell.KERNEL_LAUNCHES
+    y4 = pell.apply(A4, x)
+    per_matvec = pell.KERNEL_LAUNCHES - before
+    y1 = pell.sell_matvec_cuda(A1, x)
+    ref = pell.sell_matvec_torch(A1, x)
+    torch.cuda.synchronize()
+    equal = torch.equal(y4, y1)
+    err = (y4 - ref).abs().max().item()
+    rel = err / max(ref.abs().max().item(), 1e-30)
+    lib = sell_csr(pell, A1)
+    t_b, t_1 = [], []
+    for _ in range(2):  # turns: blocks, one, one, blocks
+        t_b.append(time_ms(lambda: [pell.sell_matvec_cuda(b, x) for b in A4.blocks], 50))
+        t_1.append(time_ms(lambda: pell.sell_matvec_cuda(A1, x), 50))
+        t_1.append(time_ms(lambda: pell.sell_matvec_cuda(A1, x), 50))
+        t_b.append(time_ms(lambda: [pell.sell_matvec_cuda(b, x) for b in A4.blocks], 50))
+    t_apply = time_ms(lambda: pell.apply(A4, x), 50)
+    host = {name: host_us(fn, 200) for name, fn in (
+        ("split", lambda: pell.apply(A4, x)), ("one", lambda: pell.sell_matvec_cuda(A1, x)))}
+    t_lib = time_ms(lambda: lib @ x, 50)
+    t_plain = time_ms(lambda: pell.sell_matvec_torch(A1, x), 5)
+    nonzeros = int((A1.vals != 0).sum())
+    bound_ms = (8 * nonzeros + 4 * (A1.n_cols + A1.n_rows)) / HBM_BYTES_S * 1e3
+    blocks_ms = statistics.median(t_b)
+    print(f"  K2 on the row blocks of {what} ({A4.block_rows} rows): {per_matvec} launches a "
+          f"matvec, bitwise equal to one launch {equal}, max err vs plain {err:.3e} (relative "
+          f"{rel:.3e}); the {len(A4.blocks)} block launches {blocks_ms:.4f} ms (turns "
+          f"{[round(t, 4) for t in t_b]}), with the copy of x and the concatenation "
+          f"{t_apply:.4f} ms, one launch {statistics.median(t_1):.4f} ms (turns "
+          f"{[round(t, 4) for t in t_1]}), useful bytes at 3.35 TB/s {bound_ms:.4f} ms "
+          f"({100 * bound_ms / blocks_ms:.1f}% for the blocks), cuSPARSE CSR {t_lib:.4f} ms, "
+          f"plain {t_plain:.3f} ms; host time a product {host['split']:.1f} us split, "
+          f"{host['one']:.1f} us one launch ({smi})")
+    check(per_matvec == len(A4.blocks), f"K2 launched once a block on {what}")
+    check(equal, f"K2's row blocks of {what} bitwise equal to one launch")
+    check(rel <= PELL_RTOL, f"K2's row blocks of {what} within tolerance of the plain version")
+    return dict(max_abs_err=err, ms=blocks_ms, plain_ms=t_plain, bound_ms=bound_ms,
+                library_ms=t_lib)
+
+
+def tet_mesh_phase(smi, dev, sfu, one):
+    """The tet domain on a device mesh of four shards of the one card (1 x 4
+    and 2 x 2) on knot_dec; returns the K1 entry of its ring (``tet_ring``)
+    and the K2 entry of its row blocks (``tet_mesh``).  ``one``: the
+    single-device tet phase's warm median, iterations, profile and launches."""
+    import tempfile
+
+    from shm3d_torch import SignedHeatOptions
+    from shm3d_torch.io.mesh_io import read_geometry
+    from shm3d_torch.ops import yukawa as yk
+    from shm3d_torch.parallel import device_mesh, rows, yukawa_field_ring
+    from shm3d_torch.solve import pell
+    from shm3d_torch.tet.solver import SignedHeatTetSolver
+    from shm3d_torch.utils.timing import PhaseTimer
+
+    geom = read_geometry(KNOT)
+    opts = SignedHeatOptions(disk_cache=True)
+    vopts = opts.with_(use_crouzeix_raviart=False)
+    mesh4 = device_mesh(devices=[dev] * 4)
+    mesh22 = device_mesh(devices=[dev] * 4, n_slices=2)
+    print(f"tet mesh: knot_dec.obj on {len(mesh4)} shards of {dev} ({smi}); one card runs "
+          f"repeated-device meshes only, so this shows the decomposition's cost, not scaling")
+    saved = os.environ.get("SHM3D_CACHE_DIR")
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ["SHM3D_CACHE_DIR"] = tmp
+        try:
+            # the host artifact, built once by one device: the CR family,
+            # then the vertex family by the mode upgrade
+            t0 = time.perf_counter()
+            single = SignedHeatTetSolver(device=dev)
+            res1 = single.compute_distance(geom, opts)
+            single.compute_distance(geom, vopts)
+            torch.cuda.synchronize()
+            build_s = time.perf_counter() - t0
+            yk.KERNEL_LAUNCHES = yk.PARTIAL_LAUNCHES = yk.MERGE_LAUNCHES = 0
+            pell.KERNEL_LAUNCHES = 0
+            rows.ROW_BLOCK_LAUNCHES = rows.BROADCASTS = 0
+            with no_plain_yukawa(yk), no_plain_sell(pell):
+                s4 = SignedHeatTetSolver(mesh=mesh4)
+                runs4, res4 = timed_solves(s4, geom, opts, 3, yk, pell)
+                s22 = SignedHeatTetSolver(mesh=mesh22)
+                runs22, res22 = timed_solves(s22, geom, opts, 1, yk, pell)
+                (vrun,), vres = timed_solves(s4, geom, vopts, 1, yk, pell)
+            launches = dict(partial=yk.PARTIAL_LAUNCHES, merge=yk.MERGE_LAUNCHES,
+                            fused=yk.KERNEL_LAUNCHES, k2=pell.KERNEL_LAUNCHES,
+                            blocks=rows.ROW_BLOCK_LAUNCHES, broadcasts=rows.BROADCASTS)
+            trees = [d for d in os.listdir(tmp) if d.startswith("tree_")]
+        finally:
+            if saved is None:
+                del os.environ["SHM3D_CACHE_DIR"]
+            else:
+                os.environ["SHM3D_CACHE_DIR"] = saved
+    n_solves = len(runs4) + len(runs22) + 1
+    st, vst = runs4[-1]["stats"], vrun["stats"]
+    warm = [r["s"] for r in runs4[1:]]
+    print(f"  host artifact by one device (CR solve + vertex upgrade) {build_s:.2f} s, "
+          f"{len(trees)} artifact; the mesh solvers read it")
+    for name, rr in (("1x4", runs4), ("2x2", runs22)):
+        for k, r in enumerate(rr):
+            rs = r["stats"]
+            print(f"  mesh {name} CR solve {k}: {r['s']:.3f} s, face iters {rs['iters']} "
+                  f"(one device {one['iters']}), f64 residual passes {rs['refine_pass_rels']}, "
+                  f"projection {rs['proj_iters']} iters {rs['proj_residual']:.3e}, K2 launches "
+                  f"{r['k2']} (one device {one['k2_per_solve']}), mem_peak_mb "
+                  f"{rs['mem_peak_mb']:.1f} (one device {one['mem_peak_mb']:.1f}), phases "
+                  f"{json.dumps(rs['phases'])}")
+    print(f"  mesh 1x4 warm {[round(w, 4) for w in warm]} s, median {statistics.median(warm):.4f} s "
+          f"at {st['iters']} face iterations (one device {one['warm_median_s']:.4f} s at "
+          f"{one['iters']}); mesh {json.dumps(st['mesh'])}")
+    print(f"  launches in the {n_solves} mesh solves: K1 partial {launches['partial']}, merge "
+          f"{launches['merge']}, fused {launches['fused']}; K2 {launches['k2']}; row-block "
+          f"products {launches['blocks']} after {launches['broadcasts']} copies of x")
+    check(len(trees) == 1, "one host artifact serves one device and the meshes")
+    check(all(r["stats"]["step3_path"] == "crouzeix-raviart" for r in runs4 + runs22),
+          "the mesh CR solves took the Crouzeix-Raviart path")
+    check(len({r["phi"] for r in runs4}) == 1, "the mesh's three CR solves give one phi")
+    check(np.array_equal(res22.phi, res4.phi), "the 2 x 2 mesh's phi bitwise equal to 1 x 4's")
+    check(launches["partial"] == 16 * n_solves and launches["merge"] == 4 * n_solves
+          and launches["fused"] == 0, "every mesh solve ran Step 1 on the ring's kernels")
+    check(launches["k2"] > 0 and all(r["k2"] > 0 for r in runs4 + runs22 + [vrun]),
+          "every mesh solve launched K2")
+    check(all(len(r["stats"]["mesh"]["row_blocks"]["L"]) == 4 for r in runs4 + runs22)
+          and len(vst["mesh"]["row_blocks"]["H"]) == 4, "L and S H S split into 4 row blocks")
+    for r in runs4 + runs22:
+        check(r["stats"]["residual"] <= FACE_RESIDUAL_MAX, "mesh face residual")
+        check(r["stats"]["proj_residual"] <= PROJ_RESIDUAL_MAX, "mesh projection residual")
+    check(res4.phi.shape == (KNOT_VERTICES,) and bool(np.isfinite(res4.phi).all()),
+          "mesh phi finite, one value a vertex")
+    check_bands(res4, dict(min=JAX_PHI_MIN, max=JAX_PHI_MAX, mean_abs=JAX_PHI_MEAN_ABS,
+                           src_mean_abs=JAX_PHI_MEAN_ABS_SRC), PHI_BANDS, "mesh CR solve")
+    print(f"  mesh 1x4 vertex solve: {vrun['s']:.3f} s, iters {vst['iters']}, residual "
+          f"{vst['residual']:.3e}, K2 launches {vrun['k2']}, max |phi| at the sources "
+          f"{np.abs(vres.phi_at_sources()).max()}, row blocks of H "
+          f"{vst['mesh']['row_blocks']['H']}, first AMG level kept whole "
+          f"{vst['mesh']['amg_first_whole_level']}, {json.dumps(vst['phases'])}")
+    check(vst["step3_path"] == "vertex" and float(np.abs(vres.phi_at_sources()).max()) == 0.0,
+          "mesh vertex solve: sources exactly 0")
+    check(vst["residual"] <= VERTEX_RESIDUAL_MAX, "mesh vertex residual")
+    check_bands(vres, JAX_VERTEX, VERTEX_BANDS, "mesh vertex solve")
+
+    # --- Step 3 given one Y: the single device's field into both
+    c1, c4 = (next(iter(sv._cache.values())) for sv in (single, s4))
+    Y = torch.as_tensor(res1.Y, dtype=torch.float32, device=dev)
+    with no_plain_yukawa(yk), no_plain_sell(pell):
+        cr = [(c["cr_path"].integrate(Y, opts, src_face_components=c["cr_face_components"],
+                                      src_face_areas=c["cr_face_areas"]),
+               dict(c["cr_path"].last_stats)) for c in (c1, c4)]
+        vx = []
+        for sv, c in ((single, c1), (s4, c4)):
+            sv.last_stats = {}
+            vx.append((sv._integrate(Y, c["mesh"], c, vopts, PhaseTimer(dev)),
+                       dict(sv.last_stats)))
+    keys = ("iters", "residual", "refine_pass_rels", "proj_iters", "proj_residual",
+            "proj_refine_pass_rels")
+    for what, ((a, sa), (b, sb)) in (("CR", cr), ("vertex", vx)):
+        same = np.array_equal(a, b) and all(sa.get(k) == sb.get(k) for k in keys)
+        print(f"  Step 3 given one Y, {what}: mesh bitwise equal to one device {same} "
+              f"(iters {sa['iters']} / {sb['iters']}, residual passes "
+              f"{sa['refine_pass_rels']} / {sb['refine_pass_rels']})")
+        check(same, f"the mesh's {what} Step 3 given one Y bitwise equal to one device's")
+
+    # --- K2 on the row blocks, K1's ring at the barycenters
+    k2_l = k2_blocks_at(pell, c1["cr_path"].arrays["L"], c4["cr_path"].arrays["L"], 8, smi,
+                        "the face operator L")
+    k2_h = k2_blocks_at(pell, c1["H_ell"], c4["H_ell"], 9, smi, "S H S")
+    q, pts, vecs = c1["barys"], c1["points"], c1["vectors"]
+    lam = float(np.sqrt(1.0 / (opts.t_coef * c1["spacing"] ** 2)))
+    Q, S = int(q.shape[0]), int(pts.shape[0])
+    yk.PARTIAL_LAUNCHES = yk.MERGE_LAUNCHES = 0
+    with no_plain_yukawa(yk):
+        ring4 = yukawa_field_ring(q, pts, vecs, lam, mesh4).gather()
+        ring22 = yukawa_field_ring(q, pts, vecs, lam, mesh22).gather()
+        torch.cuda.synchronize()
+    ring_launches = dict(partial=yk.PARTIAL_LAUNCHES, merge=yk.MERGE_LAUNCHES)
+    one_launch = yk.yukawa_field_cuda(q, pts, vecs, lam)
+    plain = plain_ring(yk, q, pts, vecs, lam, 4)
+    torch.cuda.synchronize()
+    err_one = (ring4 - one_launch).abs().max().item()
+    err_plain = (ring4 - plain).abs().max().item()
+    t_r, t_1 = [], []
+    for _ in range(2):  # turns: ring, one, one, ring
+        t_r.append(time_ms(lambda: yukawa_field_ring(q, pts, vecs, lam, mesh4), 10))
+        t_1.append(time_ms(lambda: yk.yukawa_field_cuda(q, pts, vecs, lam), 10))
+        t_1.append(time_ms(lambda: yk.yukawa_field_cuda(q, pts, vecs, lam), 10))
+        t_r.append(time_ms(lambda: yukawa_field_ring(q, pts, vecs, lam, mesh4), 10))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain_ring(yk, q, pts, vecs, lam, 4)
+    torch.cuda.synchronize()
+    ring_plain_ms = (time.perf_counter() - t0) * 1e3
+    ring_ms = statistics.median(t_r)
+    bound = pair_bound_ms(Q * S, Q, S, sfu)
+    print(f"  ring at the barycenters Q={Q} S={S} on 4 shards: {ring_launches['partial']} partial "
+          f"+ {ring_launches['merge']} merge launches in the 1-D and 2-D rings; max err vs K1 in "
+          f"one launch {err_one:.3e}, vs the plain ring {err_plain:.3e} (tol {DIR_TOL:g}); 1-D and "
+          f"2 x 2 bitwise equal {torch.equal(ring4, ring22)}; the mesh solve's Y is the ring's "
+          f"{torch.equal(torch.as_tensor(res4.Y, dtype=torch.float32, device=dev), ring4)}; "
+          f"{ring_ms:.3f} ms (turns {[round(t, 3) for t in t_r]}) against one launch "
+          f"{statistics.median(t_1):.3f} ms (turns {[round(t, 3) for t in t_1]}), plain "
+          f"{ring_plain_ms:.1f} ms, SFU bound {bound:.3f} ms ({100 * bound / ring_ms:.1f}%; {smi})")
+    check(ring_launches == dict(partial=32, merge=8), "the rings launched 16 partial + 4 merge each")
+    check(max(err_one, err_plain) <= DIR_TOL, "the ring at the barycenters within 1e-4 of K1")
+    check(torch.equal(ring4, ring22), "the 1-D and 2 x 2 rings give one field bit for bit")
+    check(torch.equal(torch.as_tensor(res4.Y, dtype=torch.float32, device=dev), ring4),
+          "the mesh solve's Step-1 field is the ring's")
+    del ring4, ring22, one_launch, plain
+
+    # --- launches of one warm mesh solve against one device's
+    with no_plain_yukawa(yk), no_plain_sell(pell):
+        prof = profile_solve("warm CR solve on 4 shards", lambda: s4.compute_distance(geom, opts),
+                             statistics.median(warm), smi, rounds=1)
+    print(f"  a warm mesh solve: {prof['launches']} launches, {prof['kernel_ms']:.1f} ms of kernel "
+          f"time; one device {one['profile']['launches']} launches, "
+          f"{one['profile']['kernel_ms']:.1f} ms ({smi})")
+    tet_ring = dict(launches=launches["partial"] + launches["merge"], max_abs_err=err_plain,
+                    ms=ring_ms, plain_ms=ring_plain_ms, bound_ms=bound)
+    tet_mesh = {k: k2_l[k] + k2_h[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
+    tet_mesh.update(launches=launches["k2"], max_abs_err=max(k2_l["max_abs_err"],
+                                                             k2_h["max_abs_err"]))
+    return tet_ring, tet_mesh
+
+
 def analytic_rel(res) -> float:
     """rel-L2 of a grid solve's phi against the unit sphere's |x| - 1."""
     from shm3d_torch.ops.farfield import _positions_of
@@ -1718,10 +2005,12 @@ def main() -> int:
     ceiling = hbm_ceiling(dev, smi)
     k3_entry, _ = roofline_phase(yk, ys, plan, pts, vecs, lam, sfu, smi, dev)
     sell_cases(pell, ell, dev)
-    tet_k1, tet_k2 = tet_phase(smi, dev, ceiling)
+    tet_k1, tet_k2, tet_one = tet_phase(smi, dev, ceiling)
     vertex_k1_launches, vertex_k2 = vertex_phase(smi, dev)
     cloud_k1, cloud_k2 = cloud_phase(smi, dev)
     bunny_k1 = upgrade_phase(smi, dev)
+    check_no_jax_package()
+    tet_ring_k1, tet_mesh_k2 = tet_mesh_phase(smi, dev, sfu, tet_one)
     check_no_jax_package()
     # the vertex phase launches the Yukawa kernel at the tet phase's shape
     # (the same conforming mesh), the point cloud and bunny_dec at their own
@@ -1757,8 +2046,9 @@ def main() -> int:
           f"{bunny_k1['ms']:.3f} ms vs {bunny_bound:.3f} ms ({smi})")
     k1_paths = {"grid": grid_k1, "grid256": grid256_k1, "grid_mesh": mesh_k1,
                 "grid_ring": ring_k1, "tet": tet_k1, "tet_point_cloud": cloud_k1,
-                "tet_bunny": bunny_k1}
-    k2_paths = {"tet": tet_k2, "tet_vertex": vertex_k2, "tet_point_cloud": cloud_k2}
+                "tet_bunny": bunny_k1, "tet_ring": tet_ring_k1}
+    k2_paths = {"tet": tet_k2, "tet_vertex": vertex_k2, "tet_point_cloud": cloud_k2,
+                "tet_mesh": tet_mesh_k2}
     print("sliced-ELL kernel vs its useful-bytes bound: " + ", ".join(
         f"{name} {p['ms']:.4f} ms vs {p['bound_ms']:.4f} ms ({p['launches']} launches)"
         for name, p in k2_paths.items()) + f" ({smi})")

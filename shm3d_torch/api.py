@@ -20,11 +20,12 @@ class SignedHeatSolver:
     polygon meshes and oriented point clouds (vertex path), and
     ``fast_integration=True`` (greedy BFS on the host).
 
-    ``mesh``: a device mesh (shm3d_torch.parallel.device_mesh) for the grid
-    domain's multi-device solve; the tet domain on a mesh is not ported yet
-    (ROADMAP A16b) and raises."""
+    ``mesh``: a device mesh (shm3d_torch.parallel.device_mesh, 1-D or 2-D)
+    for a multi-device solve of either domain; the solve then runs on the
+    mesh's devices and ``device`` defaults to its first one (the tet domain
+    refuses another)."""
 
-    def __init__(self, domain: str = "tet", device="cuda", mesh=None):
+    def __init__(self, domain: str = "tet", device=None, mesh=None):
         if domain not in ("tet", "grid"):
             raise ValueError(f"domain must be 'tet' or 'grid', got {domain!r}")
         self.domain = domain
@@ -35,7 +36,7 @@ class SignedHeatSolver:
         else:
             from .solvers.grid import GridSolver
 
-            self._impl = GridSolver(device=device, mesh=mesh)
+            self._impl = GridSolver(device="cuda" if device is None else device, mesh=mesh)
 
     def compute_distance(self, geom: Union[Mesh, PointCloud],
                          options: SignedHeatOptions = SignedHeatOptions()):

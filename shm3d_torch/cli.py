@@ -6,10 +6,9 @@ The reference binary accepts ``--g/--grid``, ``--f/--fast``,
 ``--V/--verbose`` and opens a Polyscope GUI; this CLI keeps those flags,
 implements ``--h`` (hCoef), and adds headless outputs.  It solves on
 ``--device`` (default ``cuda``; ``cuda`` without a card fails, nothing
-falls back to the CPU).  ``--devices N`` (with ``--slices K``) solves the
-grid domain on a mesh of the first N devices of ``--device``'s type (N CPU
-shards with ``--device cpu``); the tet domain on a mesh is not ported yet
-(ROADMAP A16b).
+falls back to the CPU).  ``--devices N`` (with ``--slices K``) solves
+either domain on a mesh of the first N devices of ``--device``'s type (N CPU
+shards with ``--device cpu``); ``--json`` then reports the mesh.
 """
 
 from __future__ import annotations
@@ -62,13 +61,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="torch device to solve on: cuda (default) or cpu")
     p.add_argument("--devices", type=int, default=0, metavar="N",
-                   help="grid domain: solve on a mesh of the first N devices of "
-                        "--device's type (N CPU shards with --device cpu): the "
-                        "Step-1 kernel split over them, Step 3 on z-slabs; "
-                        "0 = single device")
+                   help="solve on a mesh of the first N devices of --device's "
+                        "type (N CPU shards with --device cpu): on the grid the "
+                        "Step-1 kernel split over them and Step 3 on z-slabs, on "
+                        "the tet domain Step 1 on the ring and Step 3's operators "
+                        "split by rows; 0 = single device")
     p.add_argument("--slices", type=int, default=1, metavar="K",
                    help="with --devices N: a 2-D mesh of K slices of N/K devices "
-                        "(the hierarchical ring for the dense Step 1)")
+                        "(the hierarchical ring for a ring Step 1)")
     p.add_argument("--no-disk-cache", action="store_true",
                    help="disable the cross-process operator cache "
                         "($SHM3D_CACHE_DIR)")

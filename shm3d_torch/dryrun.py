@@ -1,15 +1,20 @@
 """Multi-device dry run of the port (counterpart of the JAX package's
-``__graft_entry__.dryrun_multichip``, grid domain):
+``__graft_entry__.dryrun_multichip``):
 
     python -m shm3d_torch.dryrun --devices N [--device cpu]
 
-One sharded grid solve through ``GridSolver(mesh=)`` on a 1-D mesh of the
-first N devices of ``--device``'s type (N CPU shards with ``--device cpu``)
-at the smallest ``h_coef`` whose grid splits evenly over them, and, for an
-even N >= 4, the same solve on a 2-D mesh of 2 slices, whose phi must equal
-the 1-D mesh's bit for bit (the ring merges in the sources' home order, and
-Step 3 sees the same slabs).  Prints one JSON line.  The tet domain on a
-mesh waits for ROADMAP A16b.
+On a 1-D mesh of the first N devices of ``--device``'s type (N CPU shards
+with ``--device cpu``):
+
+- one sharded grid solve through ``GridSolver(mesh=)`` at the smallest
+  ``h_coef`` whose grid splits evenly over them;
+- one tet solve through ``SignedHeatTetSolver(mesh=)`` (float32, ring Step 1,
+  Step 3's operators split by rows), phi finite.
+
+For an even N >= 4 both solves run again on a 2-D mesh of 2 slices, and each
+phi must equal the 1-D mesh's bit for bit: the ring merges in the sources'
+home order, the grid's Step 3 sees the same slabs and the tet domain's the
+same row blocks.  Prints one JSON line.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ def dryrun(n_devices: int, device: str = "cuda") -> dict:
     from .geometry.procedural import make_icosphere
     from .parallel import device_mesh
     from .solvers.grid import GridSolver
+    from .tet.solver import SignedHeatTetSolver
 
     mesh = device_mesh(n_devices, device=device)
     geom = make_icosphere(1)
@@ -44,11 +50,25 @@ def dryrun(n_devices: int, device: str = "cuda") -> dict:
     stats = solver.last_stats
     summary = {"devices": n_devices, "device": device, "grid_n": n,
                "mesh": stats["mesh"], "iters": stats.get("iters")}
+
+    tet_options = SignedHeatOptions(dtype="float32", refine_steps=0, solver_maxiter=60,
+                                    disk_cache=False)
+    tsolver = SignedHeatTetSolver(mesh=mesh)
+    tphi = tsolver.compute_distance(geom, tet_options).phi
+    if not np.isfinite(tphi).all():
+        raise RuntimeError("dry run: the tet solve's phi is not finite")
+    summary["tet"] = {"vertices": int(tphi.shape[0]),
+                      "step3_path": tsolver.last_stats["step3_path"],
+                      "iters": tsolver.last_stats.get("iters"),
+                      "mesh": tsolver.last_stats["mesh"]}
     if n_devices % 2 == 0 and n_devices >= 4:
         mesh2d = device_mesh(n_devices, n_slices=2, device=device)
         phi2 = GridSolver(mesh=mesh2d).compute_distance(geom, options).phi
         if not np.array_equal(phi2, phi):
             raise RuntimeError("dry run: the 2-D mesh's phi differs from the 1-D mesh's")
+        tphi2 = SignedHeatTetSolver(mesh=mesh2d).compute_distance(geom, tet_options).phi
+        if not np.array_equal(tphi2, tphi):
+            raise RuntimeError("dry run: the 2-D mesh's tet phi differs from the 1-D mesh's")
         summary["mesh2d_equal"] = True
     return summary
 

@@ -1,8 +1,9 @@
-"""Multi-device grid solves in one process (port of shm3d.parallel): the
-device mesh and its z-slab shards, the ring-scheduled Step 1, and the slab
-stencils."""
+"""Multi-device solves in one process (port of shm3d.parallel): the device
+mesh and its z-slab shards, the ring-scheduled Step 1, the slab stencils of
+the grid domain, and the row-sharded operators of the tet domain."""
 
 from .ring import yukawa_field_ring
+from .rows import RowSharded
 from .shards import (
     DeviceMesh,
     Shards,
@@ -25,5 +26,6 @@ __all__ = [
     "replicated",
     "pad_axis_to_multiple",
     "DeviceMesh",
+    "RowSharded",
     "Shards",
 ]

@@ -283,9 +283,15 @@ def build_hierarchy_host(
     return AMGHierarchy(tuple(levels), coarse_inv, tuple(sizes), l0_nnz)
 
 
-def hierarchy_to_device(h: AMGHierarchy, device) -> AMGHierarchy:
-    """The hierarchy with its arrays on ``device``."""
-    levels, coarse_inv = ell.device_put_tree((h.levels, h.coarse_inv), device)
+def hierarchy_to_device(h: AMGHierarchy, device, mesh=None) -> AMGHierarchy:
+    """The hierarchy with its arrays on ``device``.  With a device ``mesh``
+    (``device`` its first device) every level operator stored paged (the
+    sliced-ELL encoding) is split by rows over it where it gives every
+    shard a 32-row slice (``ell.device_put_tree``); the transfers, the
+    other levels, the smoother's vectors and ``coarse_inv`` stay on the
+    first device (``parallel.rows.first_whole_level`` says where the split
+    ends)."""
+    levels, coarse_inv = ell.device_put_tree((h.levels, h.coarse_inv), device, mesh)
     return AMGHierarchy(levels, coarse_inv, tuple(h.sizes), h.l0_nnz)
 
 

@@ -331,12 +331,27 @@ def _device_form(t):
     return t
 
 
-def device_put_tree(tree, device):
+def device_put_tree(tree, device, mesh=None):
     """Every numpy leaf of ``tree`` (dicts, lists, tuples and the port's
     operator types) as a tensor of the same dtype on ``device``, each
     operator node in its device encoding first (:func:`_device_form`).
     Every device takes the same encoding, so the CPU runs the layout the
-    card runs, through its plain version."""
+    card runs, through its plain version.
+
+    With a device ``mesh`` (shm3d_torch.parallel.device_mesh; ``device``
+    must be its first device) every operator in the sliced-ELL kernel's
+    encoding (``pell.SellMat``) is then split by rows over the mesh
+    (``parallel.rows.split``, which says why only that encoding), and every
+    other leaf goes to the first device."""
     device = torch.device(device)
-    return tree_mod.map_arrays(lambda a: to_tensor(a, device), tree,
-                               node=_device_form)
+    node = _device_form
+    if mesh is not None:
+        from ..parallel import rows
+
+        if device != mesh.first:
+            raise ValueError(f"device {device} is not the mesh's first device {mesh.first}")
+
+        def node(t):
+            t = _device_form(t)
+            return (rows.split(t, mesh) or t) if rows.splits(t) else t
+    return tree_mod.map_arrays(lambda a: to_tensor(a, device), tree, node=node)

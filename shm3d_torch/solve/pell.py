@@ -49,6 +49,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..parallel import rows
 from ..utils import tree as tree_mod
 from . import ell
 
@@ -461,10 +462,14 @@ def sell_matvec(s: SellMat, x: torch.Tensor,
 
 def apply(op, x: torch.Tensor, n_out: Optional[int] = None) -> torch.Tensor:
     """y = op @ x for any device operator encoding (SellMat, ell.EllMat or
-    ell.SlicedEll).  A PagedMat is the host form: ``ell.device_put_tree``
-    turns it into a SellMat."""
+    ell.SlicedEll), or for one split by rows over a device mesh
+    (``parallel.rows.RowSharded``: each block applied on its device).  A
+    PagedMat is the host form: ``ell.device_put_tree`` turns it into a
+    SellMat."""
     if isinstance(op, SellMat):
         return sell_matvec(op, x, n_out)
+    if isinstance(op, rows.RowSharded):
+        return rows.matvec(op, x, n_out)
     if isinstance(op, PagedMat):
         raise TypeError("PagedMat is the host form; upload it with "
                         "ell.device_put_tree, which converts it to a SellMat")

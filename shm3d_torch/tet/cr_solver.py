@@ -197,7 +197,7 @@ def face_component_rows(surface_faces: np.ndarray, components) -> Tuple[np.ndarr
 
 class CRPath:
     """Prepared CR operators for one conforming (mesh, surface) pair on one
-    device.
+    device, or on a device mesh.
 
     - :meth:`prepare` (static, host): every final-dtype device panel, the
       host f64 CSR operators of the defect correction and the default-mode
@@ -206,13 +206,22 @@ class CRPath:
     - :meth:`from_prepared` does the same for the tree that
       ``shm3d.tet.cr_solver.CRPath.prepare`` returns (read by field name;
       a JAX-package mesh converts with ``TetMesh.from_fields``).
+
+    ``device_mesh`` (shm3d_torch.parallel.device_mesh; ``device`` becomes
+    its first device): the operators in the sliced-ELL encoding (L at
+    production sizes and the paged AMG levels) are split by rows over it
+    (``parallel.rows``), everything else stays on the first device, so
+    given one Y the face and projection solves equal one device's bit for
+    bit.  The prepared tree is the one-device tree: shm3d pads its panels
+    to the mesh size, the port splits at upload.
     """
 
     def __init__(self, mesh: TetMesh, surface_faces: np.ndarray = None,
                  dtype=np.float64, cr_ops=None, device="cpu",
-                 prepared: Optional[dict] = None):
+                 prepared: Optional[dict] = None, device_mesh=None):
         self.mesh = mesh
-        self.device = resolve_device(device)
+        self.device_mesh = device_mesh
+        self.device = resolve_device(device if device_mesh is None else device_mesh.first)
         if prepared is None:
             prepared = CRPath.prepare(mesh, surface_faces, dtype, cr_ops=cr_ops)
         self.nf = int(prepared["nf"])
@@ -227,11 +236,12 @@ class CRPath:
         self._mask64 = np.asarray(prepared["ell"]["surf_mask"], np.float64)
         self.np_dtype = np.dtype(np.asarray(prepared["ell"]["diag"]).dtype)
         self.dtype = torch_dtype(self.np_dtype.name)
+        self._paged = isinstance(prepared["ell"]["L"], pell.PagedMat)
         dev = ell.device_put_tree(
             dict(a=prepared["ell"],
                  amg={k: (h.levels, h.coarse_inv)
                       for k, h in prepared["amg"].items()}),
-            self.device)
+            self.device, device_mesh)
         self.arrays = dev["a"]
         self._amg_cache = {
             LevelSetConstraint(k): amg.AMGHierarchy(
@@ -241,13 +251,16 @@ class CRPath:
         self.last_stats = {}
 
     @classmethod
-    def from_prepared(cls, mesh: TetMesh, prepared: dict, device) -> "CRPath":
+    def from_prepared(cls, mesh: TetMesh, prepared: dict, device,
+                      device_mesh=None) -> "CRPath":
         """A CRPath from the numpy-leaf tree of either package's ``prepare``
         (the JAX package's PagedMat/EllMat/SlicedEll/CSR64/AMGHierarchy
-        leaves are read by field name, and so is a JAX-package mesh)."""
+        leaves are read by field name, and so is a JAX-package mesh), on
+        ``device`` or split over ``device_mesh``."""
         if not isinstance(mesh, TetMesh):
             mesh = TetMesh.from_fields(mesh)
-        return cls(mesh, device=device, prepared=tree_mod.adopt(prepared))
+        return cls(mesh, device=device, prepared=tree_mod.adopt(prepared),
+                   device_mesh=device_mesh)
 
     @staticmethod
     def prepare(mesh: TetMesh, surface_faces: np.ndarray, dtype,
@@ -364,9 +377,9 @@ class CRPath:
         if mode not in self._amg_cache:
             h = CRPath._build_hierarchy_host(
                 self._H, self._mask64, mode, self.np_dtype,
-                first_P=self._first_P_scipy,
-                paged=isinstance(self.arrays["L"], pell.SellMat))
-            self._amg_cache[mode] = amg.hierarchy_to_device(h, self.device)
+                first_P=self._first_P_scipy, paged=self._paged)
+            self._amg_cache[mode] = amg.hierarchy_to_device(h, self.device,
+                                                            self.device_mesh)
         return self._amg_cache[mode]
 
     def integrate(self, Y: torch.Tensor, options: SignedHeatOptions,

@@ -30,7 +30,20 @@ behaviour): the bounded, adaptively sized Krylov chunks and their cost
 estimates (the TPU runtime's watchdog; here a solve is one CG), the
 stall-detector state threaded across chunks, and the stale-artifact gate of
 the vertex family's encoding version (this namespace never held an older
-encoding).  A device mesh raises NotImplementedError (ROADMAP A16b).
+encoding).
+
+On a device mesh (``SignedHeatTetSolver(mesh=)``, a
+shm3d_torch.parallel.device_mesh) Step 1 runs the ring schedule over the
+barycenters (K1's partial kernel on every hop, its merge kernel at the end)
+and is gathered onto the mesh's first device, as in shm3d.  Step 3 splits
+the operators in the sliced-ELL encoding by rows over the mesh
+(``parallel.rows``: the face operator L and the vertex operator H in
+float32, and the AMG levels stored paged; K2 on each block) and keeps the
+vectors and the plain-encoded operators whole on the first device, so given
+one Y it equals one device's Step 3 bit for bit.  shm3d instead pads its
+host panels to the mesh size and keys its artifact by it; here the split is
+made at upload, so the disk key and the artifact are the one device's, and
+a mesh solver reads what a one-device solver wrote.
 """
 
 from __future__ import annotations
@@ -57,6 +70,7 @@ from ..utils import checks, diskcache, treestore
 from .._device import resolve_device, torch_dtype
 from .._inputs import check_inputs
 from ..ops.yukawa import yukawa_field
+from ..parallel import rows, yukawa_field_ring
 from ..solve import amg, ell, krylov, pell
 from ..utils import tree as tree_mod
 from ..utils.timing import PhaseTimer
@@ -345,20 +359,27 @@ class SignedHeatTetSolver:
     discretization and operators of a geometry are built once per
     (geometry, options cache key) and reused by later solves.
 
-    ``device`` is required to exist: "cuda" without a visible card raises,
-    and nothing falls back to the CPU.  ``mesh`` (a device mesh for
-    multi-device solves) is not ported."""
+    ``device`` (default "cuda") is required to exist: "cuda" without a
+    visible card raises, and nothing falls back to the CPU.  With a ``mesh``
+    (shm3d_torch.parallel.device_mesh, 1-D or 2-D) the solve runs on it (the
+    module docstring) and ``device`` is its first device; another device
+    raises."""
 
     #: device-side vertex-path operator keys (built by _build_vertex_ops)
     VERTEX_KEYS = ("H_ell", "diagH", "div_rows", "div_tets", "div_gvec",
                    "vscale", "vnull")
 
-    def __init__(self, device="cuda", mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "multi-device tet solves (a device mesh) are not ported yet "
-                "(ROADMAP A16b)")
-        self.device = resolve_device(device)
+    def __init__(self, device=None, mesh=None):
+        self.mesh = mesh
+        if mesh is None:
+            self.device = resolve_device("cuda" if device is None else device)
+        else:
+            for d in mesh.devices:
+                resolve_device(d)
+            self.device = resolve_device(mesh.first)
+            if device is not None and _canonical(device) != _canonical(self.device):
+                raise ValueError(f"device {device!r} is not the mesh's first device "
+                                 f"{self.device}")
         self._cache = {}
         self.last_stats = {}
 
@@ -393,7 +414,11 @@ class SignedHeatTetSolver:
         lam = math.sqrt(1.0 / (options.t_coef * cached["spacing"] ** 2))
 
         with tm.phase("steps 1&2 (Yukawa at tet barycenters)"):
-            Y = yukawa_field(cached["barys"], cached["points"], cached["vectors"], lam)
+            if self.mesh is not None:
+                Y = yukawa_field_ring(cached["barys"], cached["points"], cached["vectors"],
+                                      lam, self.mesh).gather()
+            else:
+                Y = yukawa_field(cached["barys"], cached["points"], cached["vectors"], lam)
             checks.check_unit_field("tet Step 2 field", Y)
 
         cr_wanted = options.use_crouzeix_raviart and not options.fast_integration
@@ -425,6 +450,8 @@ class SignedHeatTetSolver:
 
         phi_host = np.asarray(phi, dtype=np.float64)
         checks.check_finite("tet phi", phi_host)
+        if self.mesh is not None:
+            self.last_stats["mesh"] = self._mesh_stats(cached, options)
         self.last_stats["phases"] = tm.as_dict()
         if self.device.type == "cuda":
             self.last_stats["mem_peak_mb"] = (
@@ -432,6 +459,25 @@ class SignedHeatTetSolver:
         return TetResult(phi_host, mesh, Y.cpu().numpy().astype(np.float64))
 
     # -- internals
+
+    def _mesh_stats(self, cached, options) -> dict:
+        """``last_stats["mesh"]``: the mesh, Step 1's schedule, the row
+        blocks of the Step-3 operators this solve applied (None for one
+        kept whole) and the first AMG level kept whole."""
+        path = self.last_stats["step3_path"]
+        mode = options.level_set_constraint
+        ops, h, op0 = {}, None, None
+        if path == "crouzeix-raviart":
+            cr = cached["cr_path"]
+            ops = {"L": cr.arrays["L"], "P": cr.arrays["P"]}
+            h, op0 = cr._hierarchy(mode), ops["L"]
+        elif path == "vertex":
+            ops = {"H": cached["H_ell"]}
+            h, op0 = cached["amg"][mode], ops["H"]
+        return dict(self.mesh.describe(), step1="ring",
+                    row_blocks={k: rows.block_rows(op) for k, op in ops.items()},
+                    amg_first_whole_level=(None if h is None
+                                           else rows.first_whole_level(h.levels, op0)))
 
     def _prepare_host(self, geom, options) -> dict:
         """Full host precompute as a persistable numpy-leaf tree: tet
@@ -625,7 +671,7 @@ class SignedHeatTetSolver:
             n = int(np.asarray(vdev["diagH"]).shape[0])
             vdev["H_ell"] = pell.sell_from_csr(ell.to_scipy(vdev["H_ell"], (n, n)), np_dtype)
         vdev["div_rows"] = np.asarray(vdev["div_rows"], np.int64)
-        return ell.device_put_tree(vdev, self.device)
+        return ell.device_put_tree(vdev, self.device, self.mesh)
 
     def _to_device(self, prepared: dict) -> dict:
         """Operator-cache entry from a prepared (possibly memory-mapped)
@@ -649,7 +695,8 @@ class SignedHeatTetSolver:
         cached = dict(
             mesh=mesh,
             cr_path=(None if prepared["cr"] is None else
-                     CRPath(mesh, device=self.device, prepared=prepared["cr"])),
+                     CRPath(mesh, device=self.device, prepared=prepared["cr"],
+                            device_mesh=self.mesh)),
             cr_face_components=prepared["cr_face_components"],
             cr_face_areas=prepared["cr_face_areas"],
             spacing=float(prepared["spacing"]),
@@ -658,7 +705,7 @@ class SignedHeatTetSolver:
                                        device=self.device),
             H_scipy=H_scipy,
             # per-constraint-mode hierarchies (+ lazy builds)
-            amg={LevelSetConstraint(k): amg.hierarchy_to_device(h, self.device)
+            amg={LevelSetConstraint(k): amg.hierarchy_to_device(h, self.device, self.mesh)
                  for k, h in prepared["vamg"].items()},
             _vertex_host=None,
             **ell.device_put_tree(dev_host, self.device),
@@ -694,7 +741,7 @@ class SignedHeatTetSolver:
         vamg = SignedHeatTetSolver._eager_vamg(H_scipy, mesh, options, np_dtype)
         for k, h in vamg.items():
             cached["amg"][LevelSetConstraint(k)] = amg.hierarchy_to_device(
-                h, self.device)
+                h, self.device, self.mesh)
 
         def mutate(prepared):
             if prepared.get("H_csr") is not None:
@@ -726,7 +773,8 @@ class SignedHeatTetSolver:
 
         cr_prep = CRPath.prepare(mesh, surf_ids, np.dtype(options.dtype),
                                  cr_ops=fem.build_cr_operators(mesh))
-        cached["cr_path"] = CRPath(mesh, device=self.device, prepared=cr_prep)
+        cached["cr_path"] = CRPath(mesh, device=self.device, prepared=cr_prep,
+                                   device_mesh=self.mesh)
         cached["cr_face_components"] = np.asarray(comps, np.int64)
         cached["cr_face_areas"] = np.asarray(areas, np.float64)
 
@@ -752,7 +800,7 @@ class SignedHeatTetSolver:
                 H = amg.masked_operator(H, mask)
             cached["amg"][mode] = amg.hierarchy_to_device(
                 amg.build_hierarchy_host(H, np_dtype, skip_level0_A=True),
-                self.device)
+                self.device, self.mesh)
         return cached["amg"][mode]
 
     def _integrate(self, Y, mesh, cached, options, tm):
@@ -907,6 +955,14 @@ class SignedHeatTetSolver:
                     visited[nb] = True
                     queue.append(int(nb))
         return phi
+
+
+def _canonical(device) -> torch.device:
+    """``device`` with the current card's index where "cuda" names none."""
+    d = torch.device(device)
+    if d.type == "cuda" and d.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return d
 
 
 def solve_tet(geom, options: SignedHeatOptions = SignedHeatOptions(),

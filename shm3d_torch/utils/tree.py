@@ -40,14 +40,17 @@ def _port_type(obj):
 def map_arrays(fn: Callable, tree, node: Optional[Callable] = None):
     """``tree`` with every numpy-array leaf replaced by ``fn(leaf)``; scalars
     and foreign objects (e.g. a TetMesh) are left as they are.  ``node``,
-    when given, rewrites each port-type node before its leaves are mapped."""
+    when given, rewrites each port-type node before its leaves are mapped;
+    a node it turns into anything but a port type is taken as it is."""
     if isinstance(tree, np.ndarray):
         return fn(tree)
     cls = _port_type(tree)
     if cls is not None:
         if node is not None:
             tree = node(tree)
-            cls = type(tree)
+            cls = _port_type(tree)
+            if cls is None:
+                return tree
         return cls(**{k: map_arrays(fn, getattr(tree, k), node) for k in _fields(cls)})
     if isinstance(tree, dict):
         return {k: map_arrays(fn, v, node) for k, v in tree.items()}

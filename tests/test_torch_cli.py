@@ -52,10 +52,18 @@ def test_cli_grid_solve_and_export(tmp_path, fast):
 
 
 def test_cli_refuses_what_is_not_ported(tmp_path):
-    # the grid domain runs on a mesh (tests/test_torch_parallel.py); the tet
-    # domain on a mesh is not ported yet
-    with pytest.raises(NotImplementedError, match="A16b"):
-        cli.main([BUNNY, "--device", "cpu", "--devices", "2"])
+    # both domains run on a mesh (tests/test_torch_parallel.py,
+    # tests/test_torch_tet_parallel.py): here the tet domain on 2 CPU shards
+    from shm3d_torch.geometry.procedural import make_icosphere
+    from shm3d_torch.io.mesh_io import write_obj
+
+    geom = make_icosphere(1)
+    obj, phi = tmp_path / "ico.obj", tmp_path / "phi.npy"
+    write_obj(str(obj), geom.vertices, geom.faces)
+    assert cli.main([str(obj), "--device", "cpu", "--devices", "2", "--no-disk-cache",
+                     "--export-phi", str(phi)]) == 0
+    v = np.load(phi)
+    assert v.ndim == 1 and v.size > geom.vertices.shape[0] and np.isfinite(v).all()
     with pytest.raises(ValueError, match="--devices"):
         cli.main([BUNNY, "--grid", "--device", "cpu", "--slices", "2"])
     if not torch.cuda.is_available():

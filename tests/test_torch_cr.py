@@ -167,13 +167,20 @@ def test_facade_disk_cache_roundtrip(cube, tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("case", ["point_cloud", "fast_integration", "device_mesh"])
 def test_unported_tet_paths_raise(case):
-    """The vertex path (point clouds) and greedy integration are ported and
-    solve; a device mesh still raises."""
+    """The vertex path (point clouds), greedy integration and the CR solve
+    on a device mesh are ported and solve."""
     if case == "device_mesh":
-        from shm3d_torch.tet.solver import SignedHeatTetSolver
+        from shm3d_torch.geometry.procedural import make_icosphere
+        from shm3d_torch.parallel import device_mesh
 
-        with pytest.raises(NotImplementedError, match="ROADMAP A16"):
-            SignedHeatTetSolver(device="cpu", mesh=object())
+        geom = make_icosphere(1)
+        opts = SignedHeatOptions(dtype="float64", disk_cache=False)
+        solver = SignedHeatSolver("tet", device="cpu", mesh=device_mesh(devices=["cpu"] * 4))
+        got = solver.compute_distance(geom, opts).phi
+        assert solver.last_stats["step3_path"] == "crouzeix-raviart"
+        one = SignedHeatSolver("tet", device="cpu").compute_distance(geom, opts).phi
+        # the ring sums the sources in another order: equal up to rounding
+        assert _rel(got, one) <= 1e-12
         return
     geom = read_geometry(BUNNY)
     opts = SignedHeatOptions(dtype="float64", disk_cache=False)

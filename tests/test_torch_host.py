@@ -183,7 +183,7 @@ def test_port_imports_neither_jax_nor_shm3d():
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'shm3d'))\n"
         "assert not bad, bad\n"
         "new = {'cli', 'oracle.reference', 'oracle.tet_reference', 'ops.wavefront',\n"
-        "       'utils.checks', 'io.volume_io', 'io.viewer'}\n"
+        "       'utils.checks', 'io.volume_io', 'io.viewer', 'parallel.rows'}\n"
         "assert {'shm3d_torch.' + m for m in new} <= set(names), sorted(names)\n"
         "print(len(names), 'OK')\n"
     )

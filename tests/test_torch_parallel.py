@@ -348,11 +348,25 @@ def test_greedy_on_mesh_gathers():
     assert _rel(got, single) < 1e-10
 
 
-def test_tet_domain_on_a_mesh_raises():
-    with pytest.raises(NotImplementedError, match="A16b"):
-        SignedHeatSolver("tet", device="cpu", mesh=cpu_mesh(2))
-    with pytest.raises(NotImplementedError, match="A16b"):
-        cli.main([BUNNY, "--device", "cpu", "--devices", "2"])
+def test_tet_domain_on_a_mesh_raises(tmp_path, capsys):
+    """The tet domain solves on a mesh of 2 CPU shards through the API and
+    the CLI (tests/test_torch_tet_parallel.py holds it to one device and to
+    shm3d)."""
+    from shm3d_torch.io.mesh_io import write_obj
+
+    geom = make_icosphere(1)
+    opts = SignedHeatOptions(dtype="float32", disk_cache=False)
+    solver = SignedHeatSolver("tet", mesh=cpu_mesh(2))
+    res = solver.compute_distance(geom, opts)
+    assert np.isfinite(res.phi).all() and res.phi.shape == (res.mesh.n_vertices,)
+    assert solver.last_stats["mesh"]["shape"] == [2] and solver.last_stats["mesh"]["step1"] == "ring"
+    obj, phi = tmp_path / "ico.obj", tmp_path / "phi.npy"
+    write_obj(str(obj), geom.vertices, geom.faces)
+    assert cli.main([str(obj), "--device", "cpu", "--devices", "2", "--no-disk-cache",
+                     "--json", "--export-phi", str(phi)]) == 0
+    summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert summary["domain"] == "tet" and summary["mesh"]["shape"] == [2]
+    assert np.array_equal(np.load(phi), res.phi)
 
 
 def _run(module, args):
