@@ -66,13 +66,13 @@ Run from the repository root:  python3 chip_smoke.py
     Yukawa kernel held against its plain version at bunny_dec's barycenters;
 13. the main path at 256^3 (h_coef=4): the subsampled-pin fast tier (one
     cold and three warm solves, its row and pin counts held to the port's
-    host code), the default tier (one cold and three warm, the correction
-    projecting with all rows through the host loop) and a reference refined
-    to 1e-11, each tier's four solves one phi, the default tier within 1e-5
-    of the reference and closer to |x| - 1 than at 128^3 by the method's
-    O(h); the Yukawa kernel against its plain version on a sample of the
-    256^3 shell launch and the whole coarse launch, timed against its SFU
-    bound;
+    host code), the default tier (one cold and one warm, the correction
+    projecting with all rows through the host loop) and a reference
+    refined to 1e-11, each tier's solves one phi, the default tier within
+    1e-5 of the reference and closer to |x| - 1 than at 128^3 by the
+    method's O(h); the Yukawa kernel against its plain version on a sample
+    of the 256^3 shell launch and the whole coarse launch, timed against its
+    SFU bound;
 14. the host-projected tier at 128^3 (max_device_pins=None): one cold and
     two warm solves, each Gram solve on the host, within 1e-5 of the 128^3
     reference;
@@ -106,7 +106,17 @@ Run from the repository root:  python3 chip_smoke.py
     the single device's; K2 on the row blocks of the face operator and of
     S H S, bitwise equal to one launch, timed against it; K1's ring at the
     barycenters, 1 x 4 = 2 x 2 bit for bit and within 1e-4 of one launch;
-    the launches of one profiled warm mesh solve against one device's.
+    the launches of one profiled warm mesh solve against one device's;
+19. the grid's MINRES-on-KKT Step 3 (``solver_method="minres_kkt"``), every
+    solve with K1's plain versions stubbed to fail: 20 iterations at 128^3
+    timed first; the icosphere at 16^3 with Step 3 in float64 on the card
+    (given K1's Y) within 1e-7 of projected CG; one solve of the main
+    path's input at the default solver_maxiter (iterations, phibar, time,
+    K1 twice, phi against the fast tier and |x| - 1); a profiled solve of
+    20 iterations; at 200 iterations two solves one phi and four shards of
+    the card within 10x the change a rounding-size perturbation of Y makes;
+    the default tier after MINRES against phase 8's reference; K1 against
+    its plain version at the path's launch shapes.
 
 Each grid phase prints the projector's tier it took (bmat, full-row,
 subsampled or host-projected).  Every kernel's launch count is set to 0 just before the path that runs it
@@ -215,6 +225,23 @@ SUBSAMPLED_REL_L2_MAX = 1e-2
 ANALYTIC_RATIO_256 = (0.4, 0.6)
 GRID_KERNELS = ("yukawa_partial", "yukawa_merge")
 
+# phase 19, MINRES on the KKT system at 128^3 in float32.  Limits from
+# scripts/minres_kkt_cpu.py (both packages on the CPU, the main path's input
+# at 32^3 and 64^3): phi's rel-L2 against the projected-CG fast tier reached
+# 5.97e-4 (the JAX package at 32^3, where it ran to solver_maxiter), and its
+# rel-L2 against |x| - 1 stayed within 0.26% of the fast tier's; the JAX
+# package's default tier after MINRES came within 8.9e-10 of the refined
+# reference at 64^3, so the port's is held to the 1e-5 bar
+MINRES_REL_L2_FAST_MAX = 1e-3
+MINRES_ANALYTIC_BAND = 0.01
+MINRES_DEFAULT_REL_L2_MAX = 1e-5
+# MINRES amplifies a rounding difference for hundreds of iterations before
+# the iterates re-converge, so at 200 iterations the mesh's shard-ordered
+# dots move u as far as a rounding-size change of Y does (0.3-1.3x in
+# tests/test_torch_minres.py's CPU mesh case); the mesh is held to this
+# many times the larger of two such perturbations, as that test holds it
+MINRES_MESH_SENSITIVITY = 10.0
+
 # roofline phase: bench_kernels.py's shapes (queries, sources), lambda 4
 ROOFLINE_SHAPES = ((1 << 19, 52290), (1 << 20, 52290), (1 << 20, 8192))
 ROOFLINE_LAM = 4.0
@@ -301,10 +328,10 @@ def chunks(yk, q, p) -> str:
 
 
 def profile_solve(label, fn, warm_s, smi, names=("sell_kernel", "yukawa_partial", "yukawa_merge"),
-                  rounds=2):
-    """One solve under torch.profiler, after one profiled warm-up (the
-    profiler's own start-up; ``rounds=1`` skips it once the profiler has
-    started in this process): the device time of its kernels (kernel events
+                  rounds=1):
+    """One solve under torch.profiler (``rounds=2``: after one profiled
+    warm-up, the profiler's own start-up, which the first profile of the
+    process needs): the device time of its kernels (kernel events
     only: an operator's row repeats its kernels' time), its wall time, the
     kernels that took most device time, and the device time of the kernels
     whose names contain ``names``.  ``warm_s``: the unprofiled warm solve's
@@ -317,7 +344,9 @@ def profile_solve(label, fn, warm_s, smi, names=("sell_kernel", "yukawa_partial"
     for _ in range(rounds):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        # device activity only: the numbers below read kernel events, and the
+        # host ops' events cost the script tens of seconds a solve to collect
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
@@ -1506,7 +1535,7 @@ def tet_mesh_phase(smi, dev, sfu, one):
     # --- launches of one warm mesh solve against one device's
     with no_plain_yukawa(yk), no_plain_sell(pell):
         prof = profile_solve("warm CR solve on 4 shards", lambda: s4.compute_distance(geom, opts),
-                             statistics.median(warm), smi, rounds=1)
+                             statistics.median(warm), smi)
     print(f"  a warm mesh solve: {prof['launches']} launches, {prof['kernel_ms']:.1f} ms of kernel "
           f"time; one device {one['profile']['launches']} launches, "
           f"{one['profile']['kernel_ms']:.1f} ms ({smi})")
@@ -1540,22 +1569,24 @@ def print_grid_solves(what, runs):
               f"phases {json.dumps(st['phases'])}")
 
 
-def grid256_phase(smi, dev, sfu, analytic_128):
+def grid256_phase(smi, dev, sfu, geom, analytic_128):
     """The main path at 256^3: the subsampled fast tier, the default tier
     and a refined reference; returns the Yukawa kernel's numbers at the
-    256^3 launch shapes with this phase's launches."""
-    from shm3d_torch import SignedHeatOptions, SignedHeatSolver, make_sphere_cloud
+    256^3 launch shapes with this phase's launches.  ``geom``: the main
+    path's cloud, whose source quadrature (~30 s on the host) it computed."""
+    from shm3d_torch import SignedHeatOptions, SignedHeatSolver
     from shm3d_torch.ops import yukawa as yk
     from shm3d_torch.ops.farfield import DeviceShellPlan
     from shm3d_torch.solve import pell
 
-    geom = make_sphere_cloud(N_POINTS)
     opts = SignedHeatOptions(dtype="float32", h_coef=H_COEF_256, refine_steps=0,
                              solver_maxiter=2000, step1_method="auto", disk_cache=False)
     solver = SignedHeatSolver("grid", device=dev)
     yk.KERNEL_LAUNCHES = 0
     fast, res_fast = timed_solves(solver, geom, opts, 4, yk, pell)
-    default, res_def = timed_solves(solver, geom, opts.with_(refine_steps=1), 4, yk, pell)
+    # the default tier's warm solves take 8-9 s each: one cold and one warm
+    # (three warm before phase 19 needed the room)
+    default, res_def = timed_solves(solver, geom, opts.with_(refine_steps=1), 2, yk, pell)
     (ref,), res_ref = timed_solves(
         solver, geom, opts.with_(refine_steps=8, refine_target=1e-11), 1, yk, pell)
     launches = yk.KERNEL_LAUNCHES
@@ -1585,7 +1616,7 @@ def grid256_phase(smi, dev, sfu, analytic_128):
     check(m == ROWS_256 and m_pin == PINS_256,
           f"256^3 rows {m} and pins {m_pin} are the host code's {ROWS_256} and {PINS_256}")
     for name, runs in (("fast", fast), ("default", default)):
-        check(len({r["phi"] for r in runs}) == 1, f"the four 256^3 {name}-tier solves give one phi")
+        check(len({r["phi"] for r in runs}) == 1, f"the 256^3 {name}-tier solves give one phi")
         check(all(r["k1"] == 2 for r in runs), f"every 256^3 {name}-tier solve launched K1 twice")
     check(bool(np.isfinite(res_def.phi).all()) and res_def.phi.shape == (res_def.grid.n ** 3,),
           "256^3 phi finite, one value a node")
@@ -1628,14 +1659,14 @@ def grid256_phase(smi, dev, sfu, analytic_128):
                 plain_ms=times["plain"], bound_ms=bound)
 
 
-def hostproj_phase(smi, dev, phi_ref_128):
-    """The host-projected tier at 128^3 (max_device_pins=None); returns its
-    Yukawa launches (the main path's shapes)."""
-    from shm3d_torch import SignedHeatOptions, SignedHeatSolver, make_sphere_cloud
+def hostproj_phase(smi, dev, geom, phi_ref_128):
+    """The host-projected tier at 128^3 (max_device_pins=None) on the main
+    path's cloud, its source quadrature computed; returns its Yukawa
+    launches (the main path's shapes)."""
+    from shm3d_torch import SignedHeatOptions, SignedHeatSolver
     from shm3d_torch.ops import yukawa as yk
     from shm3d_torch.solve import pell, projection
 
-    geom = make_sphere_cloud(N_POINTS)
     opts = SignedHeatOptions(dtype="float32", h_coef=H_COEF, refine_steps=0,
                              solver_maxiter=2000, step1_method="auto", disk_cache=False,
                              max_device_pins=None)
@@ -1858,6 +1889,207 @@ def roofline_phase(yk, ys, plan, pts, vecs, lam, sfu, smi, dev):
     }, rows_out
 
 
+def grid_k1_check(yk, plan, pts, vecs, lam, dev, smi, what):
+    """K1 against its plain version at a 128^3 grid path's two launch shapes
+    (a sample of the shell launch, the whole coarse launch), each timed on
+    both routes; returns (max error, {"kernel": ms, "plain": ms})."""
+    rows = np.sort(np.random.default_rng(1).choice(
+        plan.shell_pos.shape[0], size=min(SAMPLE_ROWS, plan.shell_pos.shape[0]),
+        replace=False))
+    sample = plan.shell_pos[torch.as_tensor(rows, device=dev)].contiguous()
+    err, _ = compare(yk, sample, pts, vecs, lam, True)
+    print(f"kernel vs plain  {what} shell sample Q={sample.shape[0]} "
+          f"S={pts.shape[0]}: max err {err:.3e} (tol {DIR_TOL:g})")
+    check(err <= DIR_TOL, f"{what} shell sample within tolerance")
+    # the whole coarse launch: its far rows underflow in an unscaled float32
+    # sum (12,099 of them in the speed-of-light probe); here every row must
+    # be finite and of unit norm
+    err_c, got_c = compare(yk, plan.coarse_pos, pts, vecs, lam, True)
+    unit_c = (torch.linalg.vector_norm(got_c, dim=1) - 1).abs().max().item()
+    print(f"kernel vs plain  {what} coarse launch Q={plan.coarse_pos.shape[0]} "
+          f"S={pts.shape[0]}: max err {err_c:.3e} (tol {DIR_TOL:g}), | |Y|-1 | <= "
+          f"{unit_c:.1e}; launches split into {chunks(yk, plan.coarse_pos, pts)} "
+          f"(coarse) and {chunks(yk, plan.shell_pos, pts)} (shell)")
+    check(bool(torch.isfinite(got_c).all()) and unit_c <= 1e-5,
+          "every coarse row finite and of unit norm")
+    check(err_c <= DIR_TOL, f"{what} coarse launch within tolerance")
+    err = max(err, err_c)
+    times = {}
+    for name, fn, reps in (("kernel", yk.yukawa_field_cuda, 5),
+                           ("plain", yk.yukawa_field_torch, 2)):
+        t_shell = time_ms(lambda: fn(plan.shell_pos, pts, vecs, lam), reps)
+        t_coarse = time_ms(lambda: fn(plan.coarse_pos, pts, vecs, lam), reps)
+        times[name] = t_shell + t_coarse
+        print(f"  {name}: shell Q={plan.shell_pos.shape[0]} {t_shell:.3f} ms, "
+              f"coarse Q={plan.coarse_pos.shape[0]} {t_coarse:.3f} ms "
+              f"(S={pts.shape[0]}, {smi})")
+    return err, times
+
+
+def minres_phase(smi, dev, solver, geom, opts, main):
+    """Phase 19, the grid's MINRES-on-KKT Step 3 (``solver_method=
+    "minres_kkt"``), every solve with K1's plain versions stubbed to fail:
+    20 iterations at 128^3 timed first; (a) the icosphere at 16^3, Step 3 in
+    float64 on the card given one Y (K1 takes float32 only), against
+    projected CG and on four shards of the card; (b) and (d) one solve of
+    the main path's input at the default ``solver_maxiter`` and
+    ``refine_steps=1``: (b) reads its MINRES solution as it enters the
+    defect correction (what a ``refine_steps=0`` solve returns), (d) the
+    default tier's phi; (c) at ``solver_maxiter=200``, two one-device solves
+    and one on four shards of the card.  Returns K1's launches in (b)'s
+    solve, the path's own.  ``main``: the main path's phi, Y and rel-L2
+    against |x| - 1, and phase 8's reference."""
+    from shm3d_torch import SignedHeatOptions, make_icosphere
+    from shm3d_torch.ops import yukawa as yk
+    from shm3d_torch.parallel import device_mesh
+    from shm3d_torch.parallel.shards import shard_rows
+    from shm3d_torch.solvers import grid as tgrid
+    from shm3d_torch.utils.timing import PhaseTimer
+
+    step3 = "step 3 (divergence + KKT MINRES solve)"
+    kkt = opts.with_(solver_method="minres_kkt",
+                     solver_maxiter=SignedHeatOptions().solver_maxiter)
+    impl = solver._impl
+    k1 = []  # K1's launches in each solve of the phase, for the log
+
+    def one(s, o, g=geom):
+        yk.KERNEL_LAUNCHES = 0
+        t0 = time.perf_counter()
+        with no_plain_yukawa(yk):
+            res = s.compute_distance(g, o)
+            torch.cuda.synchronize()
+        k1.append(yk.KERNEL_LAUNCHES)
+        return res, time.perf_counter() - t0, dict(s.last_stats)
+
+    one(solver, kkt.with_(solver_maxiter=20))  # the first MINRES call sets up
+    res, s20, st = one(solver, kkt.with_(solver_maxiter=20))
+    per_iter = st["phases"][step3] / st["iters"]
+    print(f"minres_kkt: 20 iterations at {res.grid.n}^3: {s20:.3f} s a solve, Step 3 "
+          f"{st['phases'][step3]:.3f} s, {1e3 * per_iter:.2f} ms an iteration; "
+          f"{kkt.solver_maxiter} iterations would take {kkt.solver_maxiter * per_iter:.1f} s ({smi})")
+    check(st["iters"] == 20 and st["step3_path"] == "minres-kkt", "20 MINRES iterations")
+
+    # --- (a) the icosphere at 16^3: Step 3 in float64 on the card, on one
+    # device and on four shards of it
+    ico = make_icosphere(2)
+    o32 = SignedHeatOptions(dtype="float32", refine_steps=0, disk_cache=False)
+    o64 = o32.with_(dtype="float64", solver_tol=1e-10)
+    s16 = tgrid.GridSolver(device=dev)
+    Y = one(s16, o32, ico)[0].Y.to(torch.float64)
+    c64 = tgrid.cached_from_arrays(s16._build_host_arrays(ico, o64), dev, torch.float64)
+    g16 = c64["grid"]
+    u16, phi16, iters16 = {}, {}, {}
+    for method in ("minres_kkt", "projected_cg"):
+        u16[method] = s16._integrate_exact(Y, c64, g16, True, 1e-10,
+                                           o64.with_(solver_method=method), PhaseTimer(dev))
+        phi16[method] = tgrid._mean_shift(-u16[method], c64["src_nodes8"], c64["src_coeffs8"],
+                                          c64["weights"]).cpu().numpy()
+        iters16[method] = s16.last_stats["iters"]
+    rel16 = float(np.linalg.norm(phi16["minres_kkt"] - phi16["projected_cg"])
+                  / np.linalg.norm(phi16["projected_cg"]))
+    mesh16 = device_mesh(devices=[dev] * 4)
+    sm16 = tgrid.GridSolver(mesh=mesh16)
+    um = sm16._integrate_exact(shard_rows(Y, mesh16), sm16._slab_tables(c64, g16), g16, True,
+                               1e-10, o64.with_(solver_method="minres_kkt"),
+                               PhaseTimer(dev)).gather()
+    u1 = u16["minres_kkt"]
+    rel16_mesh = float(torch.linalg.vector_norm(um - u1) / torch.linalg.vector_norm(u1))
+    iters16_mesh = sm16.last_stats["iters"]
+    print(f"  (a) icosphere 16^3, float64 Step 3 on the card given K1's Y: minres_kkt "
+          f"{iters16['minres_kkt']} iterations, projected_cg {iters16['projected_cg']}; "
+          f"phi rel-L2 between them {rel16:.3e} (limit 1e-7, the JAX package's bar); "
+          f"minres_kkt on 4 shards {iters16_mesh} iterations, u rel-L2 vs one device "
+          f"{rel16_mesh:.3e} (limits 2 iterations and 1e-9, as on the CPU's shards); "
+          f"K1 launches {k1[-1]}")
+    check(rel16 <= 1e-7, "minres_kkt within 1e-7 of projected_cg at 16^3 in float64")
+    check(sm16.last_stats["step3_path"] == "minres-kkt"
+          and abs(iters16_mesh - iters16["minres_kkt"]) <= 2 and rel16_mesh <= 1e-9,
+          "the float64 MINRES on 4 shards of the card within 1e-9 of one device's")
+
+    # --- (b) and (d): the main path's input at full width, default
+    # solver_maxiter, one solve through the defect correction.  (b) reads
+    # MINRES's u as it enters the correction: the u (and the phi) of a
+    # refine_steps=0 solve, which takes the same Step 3 from the same Y
+    entering = []
+    refine = impl._refine_or_skip
+
+    def spy(u, *args):
+        entering.append(u.clone())
+        return refine(u, *args)
+
+    impl._refine_or_skip = spy
+    try:
+        res_d, s_d, st_d = one(solver, kkt.with_(refine_steps=1))
+    finally:
+        del impl._refine_or_skip
+    launches = k1[-1]
+    cached = next(iter(impl._cache.values()))
+    u_b = entering[0]
+    res_b = tgrid.GridResult(tgrid._mean_shift(-u_b, cached["src_nodes8"], cached["src_coeffs8"],
+                                               cached["weights"]), res_d.grid, res_d.Y, u_dev=u_b)
+    rel_fast = float(np.linalg.norm(res_b.phi - main["phi"]) / np.linalg.norm(main["phi"]))
+    analytic = analytic_rel(res_b)
+    print(f"  (b) main path's input, minres_kkt, solver_maxiter {kkt.solver_maxiter}: "
+          f"{st_d['iters']} iterations, final phibar {st_d['rel_res']:.4e}, Step 3 "
+          f"{st_d['phases'][step3]:.3f} s, K1 launches {launches}; rel-L2 vs the "
+          f"fast tier {rel_fast:.4e} (limit {MINRES_REL_L2_FAST_MAX:g}), vs |x|-1 "
+          f"{analytic:.6e} (fast tier {main['analytic']:.6e}; band "
+          f"{MINRES_ANALYTIC_BAND:.0%}) ({smi})")
+    check(st_d["step3_path"] == "minres-kkt" and launches == 2 and len(entering) == 1,
+          "the MINRES solve took its path with K1 twice")
+    check(bool(np.isfinite(res_b.phi).all()), "MINRES phi finite")
+    check(torch.equal(res_d.Y, main["Y"]), "the MINRES solve's Step-1 field is the main path's")
+    check(rel_fast <= MINRES_REL_L2_FAST_MAX, "MINRES phi near the fast tier's")
+    check(abs(analytic - main["analytic"]) <= MINRES_ANALYTIC_BAND * main["analytic"],
+          "MINRES phi's distance from |x|-1 near the fast tier's")
+    rel_d = float(np.linalg.norm(res_d.phi - main["phi_ref"]) / np.linalg.norm(main["phi_ref"]))
+    print(f"  (d) default tier after MINRES, the same solve: {s_d:.3f} s, defect correction "
+          f"{st_d['phases'].get('float64 defect correction', 0):.3f} s, refine_pass_rels "
+          f"{st_d.get('refine_pass_rels')}, refine_rel_res {st_d.get('refine_rel_res')}, "
+          f"correction_iters {st_d.get('correction_iters')}; rel-L2 vs phase 8's reference "
+          f"{rel_d:.4e}; mem_peak_mb {st_d.get('mem_peak_mb', 0):.1f} ({smi})")
+    check("refine_skipped" not in st_d and st_d["refine_rel_res"] <= st_d["refine_pass_rels"][0],
+          "the default tier after MINRES corrected the defect")
+    check(rel_d <= MINRES_DEFAULT_REL_L2_MAX, "the default tier after MINRES near the reference")
+
+    # --- (c) 200 iterations: one phi twice, and four shards of the card
+    o200 = kkt.with_(solver_maxiter=200)
+    (ra, _, sta), (rb, _, _) = one(solver, o200), one(solver, o200)
+    with no_plain_yukawa(yk):
+        profile_solve("20-iteration MINRES solve",
+                      lambda: solver.compute_distance(geom, kkt.with_(solver_maxiter=20)),
+                      s20, smi, names=GRID_KERNELS)
+    mesh_solver = tgrid.GridSolver(mesh=device_mesh(devices=[dev] * 4))
+    mesh_solver._cache.update(impl._cache)  # the one device's discretization
+    rm, s_m, stm = one(mesh_solver, o200)
+    u1 = ra.u_device
+    rel_mesh = float(torch.linalg.vector_norm(rm.u_device - u1) / torch.linalg.vector_norm(u1))
+    sens = []
+    for seed in (0, 1):  # Y changed by a rounding-size relative amount
+        z = torch.as_tensor(np.random.default_rng(seed).standard_normal(tuple(ra.Y.shape)),
+                            dtype=ra.Y.dtype, device=dev)
+        up = impl._integrate_exact(ra.Y * (1 + 2.0 ** -23 * z), cached, cached["grid"], False,
+                                   o200.resolved_solver_tol(), o200, PhaseTimer(dev))
+        sens.append(float(torch.linalg.vector_norm(up - u1) / torch.linalg.vector_norm(u1)))
+    print(f"  (c) solver_maxiter=200: one device {sta['iters']} iterations, phibar "
+          f"{sta['rel_res']:.4e}, two solves bitwise equal {np.array_equal(ra.phi, rb.phi)}; "
+          f"4 shards {stm['iters']} iterations, phibar {stm['rel_res']:.4e}, {s_m:.3f} s "
+          f"(Step 3 {stm['phases'][step3]:.3f} s against one device's "
+          f"{sta['phases'][step3]:.3f} s), K1 launches {k1[-1]}, u rel-L2 vs one device "
+          f"{rel_mesh:.4e}; one device with Y perturbed by 2^-23 relative: "
+          f"{', '.join(f'{x:.4e}' for x in sens)} (limit {MINRES_MESH_SENSITIVITY:g}x the "
+          f"larger) ({smi})")
+    check(np.array_equal(ra.phi, rb.phi), "two MINRES solves give one phi")
+    check(sta["iters"] == stm["iters"] == 200, "the mesh's MINRES takes one device's iterations")
+    check(stm["mesh"]["step3"] == "z-slabs" and torch.equal(rm.Y, ra.Y),
+          "the mesh solve ran on z-slabs from one device's Y")
+    check(k1[-1] == 8, "K1 twice on each of 4 shards")
+    check(rel_mesh <= MINRES_MESH_SENSITIVITY * max(sens),
+          "the mesh moves MINRES no further than rounding of Y does")
+    print(f"  K1 launches a solve in phase 19: {k1}; the path's own, (b)'s: {launches}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check "
@@ -1879,6 +2111,10 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     print(f"gpu: {smi}")
+    t_start = time.perf_counter()
+
+    def stamp(what):
+        print(f"[{time.perf_counter() - t_start:.1f} s] {what} done", flush=True)
     dev = resolve_device("cuda")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python "
           f"{sys.version.split()[0]} device {torch.cuda.get_device_name(0)}")
@@ -1895,6 +2131,7 @@ def main() -> int:
 
     # --- kernel vs plain on synthetic inputs -------------------------------
     kernel_cases(yk, dev)
+    stamp("build and K1 cases")
 
     # --- main path ---------------------------------------------------------
     geom = make_sphere_cloud(N_POINTS)
@@ -1955,62 +2192,51 @@ def main() -> int:
     plan = next(v for v in cached.values() if isinstance(v, DeviceShellPlan))
     pts, vecs = cached["points"], cached["vectors"]
     lam = float(np.sqrt(1.0 / (opts.t_coef * cached["spacing"] ** 2)))
-    rows = np.sort(np.random.default_rng(1).choice(
-        plan.shell_pos.shape[0], size=min(SAMPLE_ROWS, plan.shell_pos.shape[0]),
-        replace=False))
-    sample = plan.shell_pos[torch.as_tensor(rows, device=dev)].contiguous()
-    err, _ = compare(yk, sample, pts, vecs, lam, True)
-    print(f"kernel vs plain  main-path shell sample Q={sample.shape[0]} "
-          f"S={pts.shape[0]}: max err {err:.3e} (tol {DIR_TOL:g})")
-    check(err <= DIR_TOL, "shell sample within tolerance")
-    # the whole coarse launch: its far rows underflow in an unscaled float32
-    # sum (12,099 of them in the speed-of-light probe); here every row must
-    # be finite and of unit norm
-    err_c, got_c = compare(yk, plan.coarse_pos, pts, vecs, lam, True)
-    unit_c = (torch.linalg.vector_norm(got_c, dim=1) - 1).abs().max().item()
-    print(f"kernel vs plain  main-path coarse launch Q={plan.coarse_pos.shape[0]} "
-          f"S={pts.shape[0]}: max err {err_c:.3e} (tol {DIR_TOL:g}), | |Y|-1 | <= "
-          f"{unit_c:.1e}; launches split into {chunks(yk, plan.coarse_pos, pts)} "
-          f"(coarse) and {chunks(yk, plan.shell_pos, pts)} (shell)")
-    check(bool(torch.isfinite(got_c).all()) and unit_c <= 1e-5,
-          "every coarse row finite and of unit norm")
-    check(err_c <= DIR_TOL, "coarse launch within tolerance")
-    err = max(err, err_c)
-    times = {}
-    for name, fn, reps in (("kernel", yk.yukawa_field_cuda, 5),
-                           ("plain", yk.yukawa_field_torch, 2)):
-        t_shell = time_ms(lambda: fn(plan.shell_pos, pts, vecs, lam), reps)
-        t_coarse = time_ms(lambda: fn(plan.coarse_pos, pts, vecs, lam), reps)
-        times[name] = t_shell + t_coarse
-        print(f"  {name}: shell Q={plan.shell_pos.shape[0]} {t_shell:.3f} ms, "
-              f"coarse Q={plan.coarse_pos.shape[0]} {t_coarse:.3f} ms "
-              f"(S={pts.shape[0]}, {smi})")
+    err, times = grid_k1_check(yk, plan, pts, vecs, lam, dev, smi, "main-path")
+    stamp("main path")
 
     # --- the default tier, the roofline, the paged kernel, the tet path -----
     profile_solve("warm fast-tier grid solve", lambda: solver.compute_distance(geom, opts),
-                  statistics.median(warm), smi)
+                  statistics.median(warm), smi, rounds=2)
     tier1 = default_tier_phase(solver, geom, opts, phi, yk, smi)
+    stamp("default tier")
     check_no_jax_package()
     sfu = sfu_pairs_per_s()
     mesh_k1, ring_k1 = mesh_phase(smi, dev, sfu, geom, opts, dict(
         solver=solver, phi=phi, iters=stats["iters"], warm_median_s=statistics.median(warm),
         phi_ref=tier1["phi_ref"], default_warm_s=tier1["warm_median_s"], k1_ms=times["kernel"],
         Y=res.Y))
+    stamp("mesh phase")
     check_no_jax_package()
     wavefront_k1 = wavefront_phase(smi, dev, solver, geom, opts)
-    hostproj_k1 = hostproj_phase(smi, dev, tier1["phi_ref"])
-    grid256_k1 = grid256_phase(smi, dev, sfu, tier1["analytic"])
+    stamp("wavefront")
+    hostproj_k1 = hostproj_phase(smi, dev, geom, tier1["phi_ref"])
+    stamp("host-projected tier")
+    grid256_k1 = grid256_phase(smi, dev, sfu, geom, tier1["analytic"])
+    stamp("256^3")
     cli_phase(smi)
+    stamp("CLI")
+    minres_launches = minres_phase(smi, dev, solver, geom, opts, dict(
+        phi=phi, Y=res.Y, analytic=rel, phi_ref=tier1["phi_ref"]))
+    # the MINRES path launches K1 at the main path's shapes on the same inputs
+    err_minres, times_minres = grid_k1_check(yk, plan, pts, vecs, lam, dev, smi, "MINRES path")
+    stamp("MINRES on the KKT system")
     check_no_jax_package()
     ceiling = hbm_ceiling(dev, smi)
     k3_entry, _ = roofline_phase(yk, ys, plan, pts, vecs, lam, sfu, smi, dev)
     sell_cases(pell, ell, dev)
+    stamp("roofline and K2 cases")
     tet_k1, tet_k2, tet_one = tet_phase(smi, dev, ceiling)
+    stamp("tet")
     vertex_k1_launches, vertex_k2 = vertex_phase(smi, dev)
+    stamp("tet vertex")
     cloud_k1, cloud_k2 = cloud_phase(smi, dev)
+    stamp("tet point cloud")
     bunny_k1 = upgrade_phase(smi, dev)
+    stamp("greedy and mode upgrade")
     check_no_jax_package()
     tet_ring_k1, tet_mesh_k2 = tet_mesh_phase(smi, dev, sfu, tet_one)
+    stamp("tet mesh phase")
     check_no_jax_package()
     # the vertex phase launches the Yukawa kernel at the tet phase's shape
     # (the same conforming mesh), the point cloud and bunny_dec at their own
@@ -2044,7 +2270,11 @@ def main() -> int:
           f"{grid256_k1['bound_ms']:.3f} ms, tet {tet_k1['ms']:.3f} ms vs {tet_bound:.3f} ms, "
           f"tet point cloud {cloud_k1['ms']:.3f} ms vs {cloud_bound:.3f} ms, bunny_dec "
           f"{bunny_k1['ms']:.3f} ms vs {bunny_bound:.3f} ms ({smi})")
+    grid_minres = dict(launches=minres_launches, max_abs_err=err_minres,
+                       ms=times_minres["kernel"], plain_ms=times_minres["plain"],
+                       bound_ms=grid_bound)
     k1_paths = {"grid": grid_k1, "grid256": grid256_k1, "grid_mesh": mesh_k1,
+                "grid_minres": grid_minres,
                 "grid_ring": ring_k1, "tet": tet_k1, "tet_point_cloud": cloud_k1,
                 "tet_bunny": bunny_k1, "tet_ring": tet_ring_k1}
     k2_paths = {"tet": tet_k2, "tet_vertex": vertex_k2, "tet_point_cloud": cloud_k2,

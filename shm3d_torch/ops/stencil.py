@@ -33,6 +33,21 @@ def laplacian_apply(u: torch.Tensor, cell_size: float) -> torch.Tensor:
     return acc / (cell_size * cell_size)
 
 
+def laplacian_diagonal(shape, cell_size: float, dtype: torch.dtype = torch.float32,
+                       device=None) -> torch.Tensor:
+    """diag(L) as an (nz, ny, nx) tensor: -6 plus one per boundary axis (the
+    mirrored entry folds into the diagonal)."""
+    diag = torch.full(tuple(shape), -6.0, dtype=dtype, device=device)
+    for axis in range(3):
+        n = shape[axis]
+        idx = torch.arange(n, device=device)
+        bnd = ((idx == 0) | (idx == n - 1)).to(dtype)
+        bshape = [1, 1, 1]
+        bshape[axis] = n
+        diag = diag + bnd.reshape(bshape)
+    return diag / (cell_size * cell_size)
+
+
 def gradient_apply(u: torch.Tensor, cell_size: float) -> torch.Tensor:
     """Forward-difference gradient -> (nz, ny, nx, 3), components (x, y, z);
     the last entry along each axis is the backward difference."""

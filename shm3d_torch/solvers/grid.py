@@ -26,7 +26,13 @@ full-row factor up to TFORM_FULL_CAP and then subsampled pins (the device
 solve pins a spatially separated subset of the rows, and the defect
 correction projects with all of them through the host loop); otherwise the
 host-projected loop (each iteration's two Gram solves by the host splu
-factor of all rows).  The MINRES-on-KKT comparison method is not ported.
+factor of all rows).
+
+``solver_method="minres_kkt"`` solves the saddle itself instead:
+block-preconditioned MINRES on [[-L, -A^T], [-A, 0]] (u, mu) = (b, 0) over
+the pinned rows, on every tier (it needs no Gram factor), followed by the
+same defect correction.  Its iteration count depends on the grid, and in
+float32 it stalls near roundoff, up to ``solver_maxiter``, as shm3d's does.
 
 ``GridSolver(mesh=)`` runs the same solve on a device mesh
 (shm3d_torch.parallel.device_mesh, 1-D or 2-D): Step 1 splits the shell
@@ -188,6 +194,75 @@ def _solve_pinned(b, nodes8, coeffs8, gram, at, cell_size: float, shape, tol: fl
     return res.x, res.iterations, rel
 
 
+class KKTPair:
+    """A vector (u, mu) of the KKT system: u a flat node vector or its
+    z-slabs (``Shards``), mu the (m,) multipliers on the (first) device.
+    Arithmetic is part by part; the dot is u's (in shard order) plus mu's."""
+
+    __slots__ = ("u", "mu")
+
+    def __init__(self, u, mu: torch.Tensor):
+        self.u, self.mu = u, mu
+
+    def __add__(self, o):
+        return KKTPair(self.u + o.u, self.mu + o.mu)
+
+    def __sub__(self, o):
+        return KKTPair(self.u - o.u, self.mu - o.mu)
+
+    def __mul__(self, s):
+        return KKTPair(self.u * s, self.mu * s)
+
+    __rmul__ = __mul__
+
+    def __truediv__(self, s):
+        return KKTPair(self.u / s, self.mu / s)
+
+    def dot(self, o) -> torch.Tensor:
+        return krylov.dot(self.u, o.u) + torch.dot(self.mu, o.mu)
+
+    def zeros_like(self):
+        return KKTPair(krylov.zeros_like(self.u), torch.zeros_like(self.mu))
+
+
+def _kkt_matvec(x: KKTPair, nodes8, coeffs8: torch.Tensor, at, cell_size: float,
+                shape) -> KKTPair:
+    """[[-L, -A^T], [-A, 0]] (u, mu)."""
+    N = shape[0] * shape[1] * shape[2]
+    Hu = -_lap(x.u, cell_size, shape)
+    return KKTPair(Hu - projection.at_apply(x.mu, at, N),
+                   -projection.a_apply(x.u, nodes8, coeffs8))
+
+
+def _solve_kkt_minres(b, nodes8, coeffs8: torch.Tensor, at, cell_size: float, shape,
+                      tol: float, maxiter: int):
+    """MINRES on the KKT saddle [[-L, -A^T], [-A, 0]] (u, mu) = (b, 0) from
+    zero, in one run of ``maxiter`` (shm3d's ``_solve_kkt_minres`` off the
+    TPU, where its chunk is ``maxiter``).  Block-diagonal preconditioner:
+    one V-cycle without pin masks on u, and mu over the Schur diagonal
+    estimate sum_j c_j^2 / diag(H)[node_j].  Returns (u, iterations, final
+    phibar)."""
+    diag_H = -stencil.laplacian_diagonal(shape, cell_size, b.dtype, b.device).reshape(-1)
+    if isinstance(b, Shards):
+        diag_rows = nodes8.values(shard_rows(diag_H, b.mesh))
+    else:
+        diag_rows = diag_H[nodes8]
+    diag_S = (coeffs8 * coeffs8 / diag_rows).sum(dim=1)
+    mg = multigrid.make_node_preconditioner(shape, cell_size)
+
+    def matvec(x):
+        return _kkt_matvec(x, nodes8, coeffs8, at, cell_size, shape)
+
+    def precond(r):
+        return KKTPair(mg(r.u), r.mu / diag_S)
+
+    rhs = KKTPair(b, coeffs8.new_zeros(coeffs8.shape[0]))
+    rhs_mnorm = torch.sqrt(torch.abs(krylov.dot(rhs, precond(rhs))))
+    res = krylov.minres(matvec, rhs, precond=precond, tol=tol, maxiter=maxiter,
+                        rhs_mnorm=rhs_mnorm)
+    return res.x.u, res.iterations, res.residual
+
+
 # copied from shm3d/solvers/grid.py (_solve_pinned_hostproj): residual
 # checks every CHECK_EVERY iterations; the loop stops after STALL_CHECKS
 # checks without a 2% gain on the best residual (preconditioned CG's
@@ -330,14 +405,6 @@ def defect_host(u64: np.ndarray, b64: np.ndarray, A, gram_lu, cell: float,
     return projection.host_project(b64 - Hu, A, gram_lu)
 
 
-def _check_options(options: SignedHeatOptions) -> None:
-    if options.solver_method != "projected_cg":
-        raise NotImplementedError(
-            f"solver_method={options.solver_method!r} is not ported: the "
-            "port runs projected_cg and leaves the MINRES-on-KKT comparison "
-            "path behind (ROADMAP, 'What the port leaves behind')")
-
-
 def cached_from_arrays(arrays: dict, device, dtype: torch.dtype) -> dict:
     """Device operator-cache entry from the host arrays of
     ``GridSolver._build_host_arrays`` (either package: the format is the
@@ -427,7 +494,6 @@ class GridSolver:
 
     def compute_distance(self, geom, options: SignedHeatOptions = SignedHeatOptions()) -> GridResult:
         check_inputs(geom, options)
-        _check_options(options)
         dtype = torch_dtype(options.dtype)
         tm = PhaseTimer(self.device, verbose=options.verbose)
         is_mesh = isinstance(geom, Mesh)
@@ -576,11 +642,14 @@ class GridSolver:
         return phi
 
     def _integrate_exact(self, Y, cached, grid, is_mesh, tol, options, tm) -> torch.Tensor:
-        """Divergence and the projected MG-PCG solve of the pinned rows;
+        """Divergence and the Step-3 solve of the pinned rows: projected
+        MG-PCG, or MINRES on the KKT system (``solver_method="minres_kkt"``);
         returns u (phi = -u before the mean shift)."""
         cell = float(grid.cell_size)
-        self.last_stats["step3_path"] = "projected-mg-pcg"
-        with tm.phase("step 3 (divergence + projected MG-PCG solve)"):
+        minres = options.solver_method == "minres_kkt"
+        self.last_stats["step3_path"] = "minres-kkt" if minres else "projected-mg-pcg"
+        with tm.phase("step 3 (divergence + KKT MINRES solve)" if minres
+                      else "step 3 (divergence + projected MG-PCG solve)"):
             if cached["pin_keep"] is not None:
                 tm.note(f"device solve pins {cached['pin_nodes8'].shape[0]} of "
                         f"{cached['nodes8'].shape[0]} rows (subsampled tier)")
@@ -590,19 +659,25 @@ class GridSolver:
                     # is wasted work
                     tol = max(tol, 1e-4)
             b = -_rhs_div(Y, cell, grid.shape, is_mesh)
-            host_loop = {}
-            u, iters, resid = _solve_pinned(
-                b, cached["pin_nodes8"], cached["pin_coeffs8"], cached["gram"],
-                cached["pin_at"], cell, grid.shape, tol, options.solver_maxiter,
-                pins=self._pin_masks(cached, grid), host_gram=cached.get("host_gram"),
-                stats=host_loop)
-            if host_loop:
-                self.last_stats["host_loop"] = host_loop
-            tm.note(f"projected_cg iters={iters} rel_res={resid:.2e}")
+            if minres:
+                # resid: the absolute phibar, as shm3d records it
+                u, iters, resid = _solve_kkt_minres(
+                    b, cached["pin_nodes8"], cached["pin_coeffs8"], cached["pin_at"], cell,
+                    grid.shape, tol, options.solver_maxiter)
+            else:
+                host_loop = {}
+                u, iters, resid = _solve_pinned(
+                    b, cached["pin_nodes8"], cached["pin_coeffs8"], cached["gram"],
+                    cached["pin_at"], cell, grid.shape, tol, options.solver_maxiter,
+                    pins=self._pin_masks(cached, grid), host_gram=cached.get("host_gram"),
+                    stats=host_loop)
+                if host_loop:
+                    self.last_stats["host_loop"] = host_loop
+            tm.note(f"{options.solver_method} iters={iters} rel_res={resid:.2e}")
             self.last_stats["iters"] = iters
             self.last_stats["rel_res"] = resid
             checks.check_finite("grid Step 3 solution", u)
-            if checks.enabled():
+            if checks.enabled() and not minres:
                 # the null-space invariant: the pinned rows hold on the iterate
                 checks.check_constraint(
                     "grid Step 3 pinning", u,

@@ -165,8 +165,8 @@ def test_port_solve_never_loads_jax():
     "fast_integration", "minres_kkt", "refine_f32", "host_projected_f64",
     "beyond_full_row_cap", "tet_domain"])
 def test_unported_paths_raise(case, monkeypatch):
-    """Only the MINRES-on-KKT method still raises; the other paths that
-    once raised here now solve, each on its own Step-3 path and tier."""
+    """Every path that once raised here now solves, each on its own Step-3
+    path and tier."""
     geom = make_icosphere(1)
     base = SignedHeatOptions(dtype="float64", refine_steps=0, disk_cache=False)
     opts = {
@@ -180,6 +180,7 @@ def test_unported_paths_raise(case, monkeypatch):
     }.get(case)
     expect = {  # (step3_path, tier)
         "fast_integration": ("greedy-bfs", "bmat"),
+        "minres_kkt": ("minres-kkt", "bmat"),
         "refine_f32": ("projected-mg-pcg", "subsampled"),
         "host_projected_f64": ("projected-mg-pcg", "host-projected"),
         "beyond_full_row_cap": ("projected-mg-pcg", "subsampled"),
@@ -199,10 +200,6 @@ def test_unported_paths_raise(case, monkeypatch):
         monkeypatch.setattr(projection, "ORTHO_GRAM_CAP", 0)
         monkeypatch.setattr(projection, "TFORM_FULL_CAP", 0)
     solver = tgrid.GridSolver(device="cpu")
-    if expect is None:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            solver.compute_distance(geom, opts)
-        return
     res = solver.compute_distance(geom, opts)
     assert (solver.last_stats["step3_path"], solver.last_stats["tier"]) == expect
     assert res.phi.shape == (16 ** 3,) and np.isfinite(res.phi).all()
