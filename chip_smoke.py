@@ -116,7 +116,22 @@ Run from the repository root:  python3 chip_smoke.py
     20 iterations; at 200 iterations two solves one phi and four shards of
     the card within 10x the change a rounding-size perturbation of Y makes;
     the default tier after MINRES against phase 8's reference; K1 against
-    its plain version at the path's launch shapes.
+    its plain version at the path's launch shapes;
+20. float64 on the card (``dtype="float64"``), every solve on the card with
+    K1's and K2's plain versions stubbed to fail and counted by K1's
+    float64 launch counts: (a) K1's float64 instantiation against its
+    float64 plain version (ragged, coincident, far, padded; fused and
+    split), its -Xptxas -v lines and FP64 instructions a pair read from the
+    SASS; (b) sphere52k-128 in float64, 1 cold + 2 warm (the
+    host-projected tier, residual <= 1e-10, one phi, 2 float64 K1 launches
+    and no K2 a solve, against |x| - 1 and phase 8's reference), then the
+    float64 kernel at its two launches against its plain version and timed
+    against the float32 kernel in turns, with its FP64 bound; (c) the 16^3
+    icosphere at solver_tol=1e-12 against the host oracle; (d) bunny_dec
+    CR and vertex against the same solves on this machine's CPU, knot_dec
+    CR (cold) against the JAX package's float32 numbers; (e) the grid and
+    bunny_dec CR on 1 x 4 and 2 x 2 meshes of the card; (f) the CLI with
+    ``--dtype float64``.
 
 Each grid phase prints the projector's tier it took (bmat, full-row,
 subsampled or host-projected).  Every kernel's launch count is set to 0 just before the path that runs it
@@ -241,6 +256,36 @@ MINRES_DEFAULT_REL_L2_MAX = 1e-5
 # tests/test_torch_minres.py's CPU mesh case); the mesh is held to this
 # many times the larger of two such perturbations, as that test holds it
 MINRES_MESH_SENSITIVITY = 10.0
+
+# phase 20, float64 on the card.  K1's float64 instantiation against its
+# float64 plain version: max |diff| / max |ref| per row (the same formula
+# in one precision, summed in another order: ~1e-15, ~1e-14 far from every
+# source, where the exponents reach ~2e3); the 128^3 solve to the float64
+# solver tolerance; the 16^3 icosphere at solver_tol=1e-12 within the
+# bound tests/test_torch_grid_tiers.py holds the CPU to against the host
+# oracle; the card against the CPU, and a mesh against one device, within
+# the bound the CPU tests hold the same float64 solves to against shm3d
+# (the same AMG or MG-CG to 1e-10 in another summation order: a rounding
+# change of Y moves where bunny_dec's CR solve stops, 647 iterations on
+# the card, 754 on the CPU, 667 on the ring's Y); the grid's mesh, whose
+# Y is one device's bit for bit, within 1e-9.  knot_dec's float64 CR: the
+# AMG-CG plateaus near 6e-6 for longer than both packages' float64 stall
+# window (1,000 iterations, shm3d/tet/solver.py:_stall_window), which ends
+# it there (scripts/knot_f64_stall.py runs it past the window), so its
+# residual is held below the float32 path's (the JAX package's 2.2e-4),
+# and its phi to the JAX package's float32 numbers: 1e-2 on the single
+# interior minimum, 1e-3 on the other three
+F64_ROW_RTOL = 1e-12
+F64_RESIDUAL_MAX = 1e-10
+F64_ORACLE_REL_L2_MAX = 1e-6
+F64_CPU_REL_L2_MAX = 1e-8
+F64_MESH_REL_L2_MAX = 1e-9
+F64_TET_MESH_REL_L2_MAX = 1e-8
+F64_KNOT_RESIDUAL_MAX = 1e-4
+F64_PHI_BANDS = dict(min=1e-2, max=1e-3, mean_abs=1e-3, src_mean_abs=1e-3)
+F64_WARM_KNOT_BEFORE_S = 110  # a warm knot_dec solve (~20 s) only if phase 20 stays < 200 s
+FP64_LANES = 64                # H100 SXM: FP64 results a clock an SM
+FP64_FLOOR_PER_PAIR = 12       # 3 sub, 3 for r^2, r, the exponent, the weight, 3 sums
 
 # roofline phase: bench_kernels.py's shapes (queries, sources), lambda 4
 ROOFLINE_SHAPES = ((1 << 19, 52290), (1 << 20, 52290), (1 << 20, 8192))
@@ -1067,7 +1112,7 @@ def no_plain_yukawa(yk):
 
     def refuse(name):
         def stub(*args, **kwargs):
-            check(False, f"a mesh solve on the card reached the plain {name}")
+            check(False, f"a solve on the card reached the plain {name}")
         return stub
 
     for n in names:
@@ -1083,7 +1128,7 @@ def shard_blocks(q, P):
     """The row blocks ``farfield._rowsharded`` launches K1 on."""
     from shm3d_torch.ops.farfield import row_blocks
 
-    step = row_blocks(q.shape[0], P)
+    step = row_blocks(q.shape[0], P, q.dtype)
     return [q[k * step:(k + 1) * step] for k in range(P) if k * step < q.shape[0]]
 
 
@@ -1305,7 +1350,7 @@ def no_plain_sell(pell):
     saved = pell.sell_matvec_torch
 
     def stub(*args, **kwargs):
-        check(False, "a mesh solve on the card reached the plain sell_matvec_torch")
+        check(False, "a solve on the card reached the plain sell_matvec_torch")
 
     pell.sell_matvec_torch = stub
     try:
@@ -1930,7 +1975,7 @@ def minres_phase(smi, dev, solver, geom, opts, main):
     """Phase 19, the grid's MINRES-on-KKT Step 3 (``solver_method=
     "minres_kkt"``), every solve with K1's plain versions stubbed to fail:
     20 iterations at 128^3 timed first; (a) the icosphere at 16^3, Step 3 in
-    float64 on the card given one Y (K1 takes float32 only), against
+    float64 on the card given the float32 solve's Y, against
     projected CG and on four shards of the card; (b) and (d) one solve of
     the main path's input at the default ``solver_maxiter`` and
     ``refine_steps=1``: (b) reads its MINRES solution as it enters the
@@ -2090,6 +2135,398 @@ def minres_phase(smi, dev, solver, geom, opts, main):
     return launches
 
 
+def f64_ptxas_lines():
+    """The -Xptxas -v lines of K1's float64 instantiations (the
+    ``...IdEE...`` entry functions): registers, shared memory, spills."""
+    from shm3d_torch import _build
+
+    lines = _build.BUILD_INFO["log"].splitlines()
+    out = []
+    for k, line in enumerate(lines):
+        if "Compiling entry function" in line and "yukawa_" in line and "IdEE" in line:
+            name = "partial" if "partial_kernel" in line else "merge"
+            out += [f"float64 {name} kernel: {x.strip()}" for x in lines[k + 1:k + 4]
+                    if "Used" in x or "spill" in x]
+    return out
+
+
+def _sass_op(text):
+    """The opcode of one SASS instruction, its predicate stripped."""
+    words = text.split()
+    return words[1] if words[0].startswith("@") else words[0]
+
+
+def sass_fp64_per_pair():
+    """FP64 instructions a pair in the float64 partial kernel, read from the
+    built library's SASS (``cuobjdump -sass``): in the innermost loop that
+    evaluates pairs (a backward branch whose range holds no other loop and
+    the most MUFU.RSQ64H, one a pair), the FP64-pipe instructions (DADD,
+    DMUL, DFMA, DSETP, DSET, DMNMX and the *.F64 conversions) over its
+    MUFU.RSQ64H.  Returns (per pair, {opcode: count} a pair, pairs in the
+    loop body), or None where the toolkit has no cuobjdump."""
+    import re
+    import shutil
+
+    from shm3d_torch import _build
+
+    tool = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
+    tool = tool if os.path.isfile(tool) else shutil.which("cuobjdump")
+    if not tool:
+        return None
+    sass = subprocess.run([tool, "-sass", str(_build.library_path())], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+    body = next(f for f in sass.split("Function : ")[1:]
+                if "yukawa_partial_kernelIdE" in f.split("\n", 1)[0])
+    ins = [(int(m.group(1), 16), _sass_op(m.group(2)), m.group(2))
+           for m in re.finditer(r"/\*([0-9a-f]{4,})\*/\s+([^;]+);", body)]
+    loops = []
+    for at, op, text in ins:
+        target = re.search(r"0x([0-9a-f]+)", text)
+        if op.startswith("BRA") and target and int(target.group(1), 16) < at:
+            loops.append((int(target.group(1), 16), at))
+    inner = [(a, b) for a, b in loops
+             if not any(a <= c and d <= b and (c, d) != (a, b) for c, d in loops)]
+    fp64 = ("DADD", "DMUL", "DFMA", "DSETP", "DSET", "DMNMX")
+
+    def counts(a, b):
+        c = {}
+        for at, op, _ in ins:
+            if a <= at <= b and (op.split(".")[0] in fp64 or op.startswith("MUFU.RSQ64H")
+                                 or (".F64" in op and not op.startswith("MUFU"))):
+                c[op] = c.get(op, 0) + 1
+        return c
+
+    best = max(inner, key=lambda ab: counts(*ab).get("MUFU.RSQ64H", 0))
+    c = counts(*best)
+    pairs = c.pop("MUFU.RSQ64H", 0)
+    if pairs == 0:
+        return None
+    return sum(c.values()) / pairs, {k: v / pairs for k, v in sorted(c.items())}, pairs
+
+
+def row_rel(got, ref) -> float:
+    """max over rows of max |got - ref| / max |ref| in the row; a row equal
+    to its reference counts 0 (an unnormalized sum far from every source
+    underflows to 0 even in float64), any other row of a zero reference
+    inf."""
+    diff = (got - ref).abs().amax(dim=1)
+    return torch.where(diff == 0, 0.0, diff / ref.abs().amax(dim=1)).max().item()
+
+
+def f64_kernel_cases(yk, dev):
+    """K1's float64 instantiation against its float64 plain version on
+    seeded synthetic inputs (ragged, a query on a source, far queries with a
+    large lambda, padded sources), fused and split (partials then merge,
+    bitwise the fused call); returns the largest error per row."""
+    rng = np.random.default_rng(20)
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float64, device=dev)
+
+    n = rng.normal(size=(3001, 3))
+    n /= np.linalg.norm(n, axis=1, keepdims=True)
+    vn = n * rng.uniform(0.5, 1.5, (3001, 1))
+    vr = rng.normal(size=(4099, 3)) * 0.3
+    vr[:, 2] += 1.0
+    pp, pv = yk.pad_sources(t(n), t(vn), 1024)
+    cases = (("ragged Q=5003 S=4099", t(rng.uniform(-1, 1, (5003, 3))),
+              t(rng.uniform(-1, 1, (4099, 3))), t(vr), 7.5),
+             ("coincident Q=257 S=3001", t(n[:257]), t(n), t(vn), 10.0),
+             ("far |q|=40 lam=50", t(40.0 * n[:1000] * [1, -1, 1]), t(n), t(vn), 50.0),
+             (f"padded Q=777 S=3001+{pp.shape[0] - 3001}", t(rng.uniform(-1, 1, (777, 3))),
+              pp, pv, 3.0))
+    worst = 0.0
+    for name, q, p, v, lam in cases:
+        for normalize in (True, False):
+            got = yk.yukawa_field_cuda(q, p, v, lam, normalize=normalize)
+            chunk = yk.yukawa_chunk_len(q.shape[0], p.shape[0], dev, torch.float64)
+            split = yk.yukawa_merge_cuda(yk.yukawa_partials_cuda(q, p, v, lam, chunk), normalize)
+            ref = yk.yukawa_field_torch(q, p, v, lam, normalize=normalize)
+            torch.cuda.synchronize()
+            err = row_rel(got, ref)
+            worst = max(worst, err)
+            unit = ((torch.linalg.vector_norm(got, dim=1) - 1).abs().max().item()
+                    if normalize else 0.0)
+            print(f"float64 kernel vs plain  {name} normalize={normalize}: max err per row "
+                  f"{err:.3e} (tol {F64_ROW_RTOL:g}), split = fused {torch.equal(split, got)}, "
+                  f"| |Y|-1 | <= {unit:.1e} ({-(-p.shape[0] // chunk)} chunks of {chunk})")
+            check(bool(torch.isfinite(got).all()) and unit <= 1e-14,
+                  f"float64 {name}: finite, unit rows")
+            check(err <= F64_ROW_RTOL and torch.equal(split, got),
+                  f"float64 {name}: within tolerance, split bitwise the fused call")
+    return worst
+
+
+def f64_phase(smi, dev, geom, main):
+    """Phase 20, float64 on the card, every solve on the card with K1's and
+    K2's plain versions stubbed to fail: (a) K1's float64 instantiation on
+    synthetic inputs and at the main path's two launches, timed against the
+    float32 kernel in turns, with its registers, spills and FP64
+    instructions a pair; (b) sphere52k-128 in float64; (c) the 16^3
+    icosphere against the host oracle; (d) bunny_dec CR and vertex against
+    the same solves on this machine's CPU, knot_dec CR; (e) the grid and
+    bunny_dec CR on 1 x 4 and 2 x 2 meshes of the card; (f) the CLI.
+    Returns the float64 K1 entry of the kernels line.  ``main``: the main
+    path's float32 launch inputs (plan, points, vectors, lambda) and phase
+    8's reference."""
+    import tempfile
+
+    from shm3d_torch import SignedHeatOptions, SignedHeatSolver, make_icosphere
+    from shm3d_torch.io.mesh_io import read_geometry
+    from shm3d_torch.ops import yukawa as yk
+    from shm3d_torch.ops.farfield import DeviceShellPlan
+    from shm3d_torch.oracle import reference as oracle
+    from shm3d_torch.parallel import device_mesh
+    from shm3d_torch.solve import pell
+    from shm3d_torch.solvers import grid as tgrid
+
+    t_phase = time.perf_counter()
+    per_path = {}
+
+    def counts():
+        return (yk.KERNEL_LAUNCHES_F64, yk.PARTIAL_LAUNCHES_F64, yk.MERGE_LAUNCHES_F64,
+                yk.KERNEL_LAUNCHES, yk.PARTIAL_LAUNCHES, yk.MERGE_LAUNCHES, pell.KERNEL_LAUNCHES)
+
+    def on_card(solver, g, o, n=1):
+        """n solves on the card with K1's and K2's plain versions stubbed:
+        per solve its time, launches (float64 fused, partial, merge; float32
+        any; K2), stats and phi hash; and the last result."""
+        runs = []
+        for _ in range(n):
+            before = counts()
+            t0 = time.perf_counter()
+            with no_plain_yukawa(yk), no_plain_sell(pell):
+                res = solver.compute_distance(g, o)
+                torch.cuda.synchronize()
+            d = [a - b for a, b in zip(counts(), before)]
+            runs.append(dict(s=time.perf_counter() - t0, f64=tuple(d[:3]), f32=sum(d[3:6]),
+                             k2=d[6], stats=dict(solver.last_stats),
+                             phi=hashlib.sha1(res.phi.tobytes()).hexdigest()))
+        return runs, res
+
+    def rel(a, b):
+        return float(np.linalg.norm(np.asarray(a) - np.asarray(b)) / np.linalg.norm(b))
+
+    # --- (a) the kernel: build lines, synthetic cases
+    for line in f64_ptxas_lines():
+        print(f"  {line}")
+    worst = f64_kernel_cases(yk, dev)
+
+    # --- (b) sphere52k-128 in float64: 1 cold + 2 warm
+    o64 = SignedHeatOptions(dtype="float64", h_coef=H_COEF, refine_steps=0, disk_cache=False)
+    solver = SignedHeatSolver("grid", device=dev)
+    runs, res = on_card(solver, geom, o64, 3)
+    st = runs[-1]["stats"]
+    analytic = analytic_rel(res)
+    band = abs(analytic - JAX_ANALYTIC_REL_L2) / JAX_ANALYTIC_REL_L2
+    rel_ref = rel(res.phi, main["phi_ref"])
+    print(f"float64 on the card: sphere52k-128 ({N_POINTS} points, {res.grid.n}^3, "
+          f"refine_steps=0, solver_tol {o64.resolved_solver_tol():g})")
+    for k, r in enumerate(runs):
+        rs = r["stats"]
+        print(f"  solve {k} ({'cold' if k == 0 else 'warm'}): {r['s']:.4f} s, tier {rs['tier']}, "
+              f"iters {rs['iters']}, rel_res {rs['rel_res']:.4e}, K1 float64 launches "
+              f"{r['f64'][0]} (float32 {r['f32']}), K2 {r['k2']}, host_loop {rs.get('host_loop')}, "
+              f"mem_peak_mb {rs['mem_peak_mb']:.1f}, phases {json.dumps(rs['phases'])} ({smi})")
+    print(f"  rel-L2 vs |x|-1 {analytic:.6e} (JAX package, float32: {JAX_ANALYTIC_REL_L2:.6e}; "
+          f"off by {band:.2%}, limit {ANALYTIC_BAND:.0%}); vs phase 8's refined reference "
+          f"{rel_ref:.4e} (limit {FAST_TIER_REL_L2_MAX:g}); distinct phi "
+          f"{len({r['phi'] for r in runs})}")
+    check(all(r["stats"]["tier"] == "host-projected" for r in runs),
+          "float64 at 128^3 takes the host-projected tier")
+    check(all(r["stats"]["rel_res"] <= F64_RESIDUAL_MAX for r in runs), "float64 residual")
+    check(len({r["phi"] for r in runs}) == 1 and bool(np.isfinite(res.phi).all()),
+          "the float64 solves give one finite phi")
+    check(band <= ANALYTIC_BAND, "float64 analytic rel-L2 within 10% of the JAX package")
+    check(rel_ref <= FAST_TIER_REL_L2_MAX, "float64 phi within 1e-5 of phase 8's reference")
+    check(all(r["f64"] == (2, 0, 0) and r["f32"] == 0 and r["k2"] == 0 for r in runs),
+          "every float64 grid solve launched float64 K1 twice, no float32 K1 and no K2")
+    per_path["grid"] = dict(launches=sum(r["f64"][0] for r in runs))
+
+    # --- (a, continued) K1 at the main path's two launches
+    cached = next(iter(solver._impl._cache.values()))
+    plan = next(v for v in cached.values() if isinstance(v, DeviceShellPlan))
+    pts, vecs = cached["points"], cached["vectors"]
+    lam = main["lam"]
+    S = int(pts.shape[0])
+    errs, unit = [], 0.0
+    for q in (plan.shell_pos, plan.coarse_pos):
+        got = yk.yukawa_field_cuda(q, pts, vecs, lam)
+        ref = yk.yukawa_field_torch(q, pts, vecs, lam)
+        torch.cuda.synchronize()
+        errs.append((row_rel(got, ref), (got - ref).abs().max().item()))
+        unit = max(unit, (torch.linalg.vector_norm(got, dim=1) - 1).abs().max().item())
+        del got, ref
+    err_main = max(e[0] for e in errs)
+    print(f"  float64 kernel vs plain at the main path's launches: shell Q="
+          f"{plan.shell_pos.shape[0]} max err per row {errs[0][0]:.3e}, coarse Q="
+          f"{plan.coarse_pos.shape[0]} {errs[1][0]:.3e} (tol {F64_ROW_RTOL:g}); | |Y|-1 | <= "
+          f"{unit:.1e}")
+    check(err_main <= F64_ROW_RTOL and unit <= 1e-14,
+          "float64 kernel within 1e-12 per row at the main path's launches")
+
+    def both(fn, q_s, q_c, p, v, reps):
+        return time_ms(lambda: (fn(q_s, p, v, lam), fn(q_c, p, v, lam)), reps)
+
+    t64, t32 = [], []
+    for _ in range(2):  # turns: float64, float32, float32, float64
+        t64.append(both(yk.yukawa_field_cuda, plan.shell_pos, plan.coarse_pos, pts, vecs, 3))
+        t32.append(both(yk.yukawa_field_cuda, main["plan"].shell_pos, main["plan"].coarse_pos,
+                        main["points"], main["vectors"], 3))
+        t32.append(both(yk.yukawa_field_cuda, main["plan"].shell_pos, main["plan"].coarse_pos,
+                        main["points"], main["vectors"], 3))
+        t64.append(both(yk.yukawa_field_cuda, plan.shell_pos, plan.coarse_pos, pts, vecs, 3))
+    plain_ms = both(yk.yukawa_field_torch, plan.shell_pos, plan.coarse_pos, pts, vecs, 1)
+    pairs = (int(plan.shell_pos.shape[0]) + int(plan.coarse_pos.shape[0])) * S
+    fp64_rate = SMS * FP64_LANES * float(smi_query("clocks.max.sm")) * 1e6
+    sass = sass_fp64_per_pair()
+    per_pair = sass[0] if sass else FP64_FLOOR_PER_PAIR
+    bound_ms = pairs * per_pair / fp64_rate * 1e3
+    ms = statistics.median(t64)
+    print(f"  float64 kernel {ms:.3f} ms (turns {[round(t, 3) for t in t64]}) against float32 "
+          f"{statistics.median(t32):.3f} ms (turns {[round(t, 3) for t in t32]}), "
+          f"{ms / statistics.median(t32):.2f}x; plain float64 {plain_ms:.1f} ms; {pairs} pairs")
+    if sass:
+        print(f"  FP64 instructions a pair from the SASS: {sass[0]:.2f} "
+              f"({', '.join(f'{k} {v:g}' for k, v in sass[1].items())}; the stage loop's body "
+              f"evaluates {sass[2]} pairs), plus one MUFU.RSQ64H")
+    else:
+        print(f"  FP64 instructions a pair: not measured (no cuobjdump); the bound takes the "
+              f"{FP64_FLOOR_PER_PAIR} arithmetic operations every float64 pair needs")
+    print(f"  FP64 bound {bound_ms:.3f} ms ({SMS} SMs x {FP64_LANES} lanes at the maximum SM "
+          f"clock, {fp64_rate:.3e} instructions/s); the kernel at {100 * bound_ms / ms:.1f}% "
+          f"of it ({smi})")
+    entry = dict(max_abs_err=max(e[1] for e in errs), max_row_rel_err=max(worst, err_main),
+                 ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                 fp64_per_pair=sass[0] if sass else None, f32_ms=statistics.median(t32))
+
+    # --- (c) the 16^3 icosphere at solver_tol=1e-12 against the host oracle
+    ico = make_icosphere(2)
+    o_ico = SignedHeatOptions(dtype="float64", refine_steps=0, solver_tol=1e-12,
+                              solver_maxiter=20000, disk_cache=False)
+    (r_ico,), res_ico = on_card(SignedHeatSolver("grid", device=dev), ico, o_ico)
+    rel_oracle = rel(res_ico.phi, oracle.solve_grid(ico, o_ico).phi)
+    print(f"  icosphere {res_ico.grid.n}^3, solver_tol 1e-12: tier {r_ico['stats']['tier']}, "
+          f"iters {r_ico['stats']['iters']}, rel_res {r_ico['stats']['rel_res']:.3e}; rel-L2 vs "
+          f"the host oracle {rel_oracle:.3e} (limit {F64_ORACLE_REL_L2_MAX:g})")
+    check(rel_oracle <= F64_ORACLE_REL_L2_MAX and r_ico["f64"] == (1, 0, 0),
+          "float64 16^3 within 1e-6 of the host oracle, K1 float64 once")
+    per_path["grid_icosphere16"] = dict(launches=r_ico["f64"][0])
+
+    # --- (d) the tet domain; (e) the meshes.  A temporary disk cache lets
+    # the CPU solves and the mesh solvers read the card's bunny_dec artifact
+    bunny = read_geometry(BUNNY)
+    b64 = SignedHeatOptions(dtype="float64", disk_cache=True)
+    mesh4 = device_mesh(devices=[dev] * 4)
+    mesh22 = device_mesh(devices=[dev] * 4, n_slices=2)
+    saved = os.environ.get("SHM3D_CACHE_DIR")
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ["SHM3D_CACHE_DIR"] = tmp
+        try:
+            tet = {}
+            for name, o in (("CR", b64), ("vertex", b64.with_(use_crouzeix_raviart=False))):
+                card_runs, card = on_card(SignedHeatSolver("tet", device=dev), bunny, o)
+                t0 = time.perf_counter()
+                cpu_solver = SignedHeatSolver("tet", device="cpu")
+                cpu = cpu_solver.compute_distance(bunny, o)
+                tet[name] = (card_runs[0], card, dict(cpu_solver.last_stats), cpu,
+                             time.perf_counter() - t0)
+            mesh_tet = [on_card(SignedHeatSolver("tet", mesh=m), bunny, b64) for m in (mesh4, mesh22)]
+        finally:
+            if saved is None:
+                del os.environ["SHM3D_CACHE_DIR"]
+            else:
+                os.environ["SHM3D_CACHE_DIR"] = saved
+    for name, (r, card, cst, cpu, cpu_s) in tet.items():
+        rs = r["stats"]
+        rel_cpu = rel(card.phi, cpu.phi)
+        print(f"  bunny_dec {name} (float64, {card.mesh.n_vertices} vertices): card {r['s']:.3f} s, "
+              f"{rs['step3_path']}, iters {rs['iters']}, residual {rs.get('residual')}, K1 float64 "
+              f"{r['f64'][0]}, K2 {r['k2']}; this machine's CPU {cpu_s:.3f} s, iters "
+              f"{cst['iters']}, residual {cst.get('residual')}; rel-L2 card vs CPU {rel_cpu:.3e}, "
+              f"max |diff| / max |phi| {np.abs(card.phi - cpu.phi).max() / np.abs(cpu.phi).max():.3e} "
+              f"(limit {F64_CPU_REL_L2_MAX:g})")
+        check(rel_cpu <= F64_CPU_REL_L2_MAX and r["f64"] == (1, 0, 0) and r["k2"] == 0
+              and r["f32"] == 0, f"bunny_dec {name} in float64 on the card near the CPU's")
+    per_path["tet_bunny"] = dict(launches=sum(v[0]["f64"][0] for v in tet.values()))
+
+    knot = read_geometry(KNOT)
+    k_solver = SignedHeatSolver("tet", device=dev)
+    k_opts = SignedHeatOptions(dtype="float64", disk_cache=False)
+    kruns, kres = on_card(k_solver, knot, k_opts)
+    if time.perf_counter() - t_phase < F64_WARM_KNOT_BEFORE_S:
+        warm_runs, kres = on_card(k_solver, knot, k_opts)
+        kruns += warm_runs
+    for k, r in enumerate(kruns):
+        ks = r["stats"]
+        print(f"  knot_dec CR in float64 ({'cold' if k == 0 else 'warm'}): {r['s']:.3f} s, iters "
+              f"{ks['iters']}, final residual {ks['residual']:.3e} (limit "
+              f"{F64_KNOT_RESIDUAL_MAX:g}), projection {ks['proj_iters']} iters "
+              f"{ks['proj_residual']:.3e}, K1 float64 {r['f64'][0]}, K2 {r['k2']}, mem_peak_mb "
+              f"{ks['mem_peak_mb']:.1f}, phases {json.dumps(ks['phases'])} ({smi})")
+        check(ks["step3_path"] == "crouzeix-raviart" and ks["residual"] <= F64_KNOT_RESIDUAL_MAX
+              and ks["proj_residual"] <= PROJ_RESIDUAL_MAX and r["f64"] == (1, 0, 0)
+              and r["k2"] == 0, "knot_dec CR in float64: residuals, K1 float64 once, no K2")
+    check(len({(r["phi"], r["stats"]["iters"]) for r in kruns}) == 1,
+          "the knot_dec float64 solves give one phi")
+    check_bands(kres, dict(min=JAX_PHI_MIN, max=JAX_PHI_MAX, mean_abs=JAX_PHI_MEAN_ABS,
+                           src_mean_abs=JAX_PHI_MEAN_ABS_SRC), F64_PHI_BANDS,
+                "knot_dec CR in float64")
+    per_path["tet_knot"] = dict(launches=sum(r["f64"][0] for r in kruns))
+
+    # (e) the grid on 1 x 4 and 2 x 2 from the one device's discretization
+    grid_mesh = []
+    for m in (mesh4, mesh22):
+        ms_solver = tgrid.GridSolver(mesh=m)
+        ms_solver._cache.update(solver._impl._cache)
+        grid_mesh.append(on_card(ms_solver, geom, o64))
+    (g4,), r4 = grid_mesh[0]
+    (g22,), r22 = grid_mesh[1]
+    rel_g = rel(r4.phi, res.phi)
+    print(f"  grid on 1 x 4: {g4['s']:.3f} s, iters {g4['stats']['iters']} (one device "
+          f"{st['iters']}), K1 float64 {g4['f64'][0]}; 2 x 2 {g22['s']:.3f} s; 1 x 4 = 2 x 2 bit "
+          f"for bit {g4['phi'] == g22['phi']}; Y bitwise one device's {torch.equal(r4.Y, res.Y)}; "
+          f"rel-L2 vs one device {rel_g:.3e} (limit {F64_MESH_REL_L2_MAX:g})")
+    check(g4["phi"] == g22["phi"] and torch.equal(r4.Y, res.Y) and rel_g <= F64_MESH_REL_L2_MAX
+          and g4["stats"]["mesh"]["step3"] == "z-slabs",
+          "the float64 grid on the meshes: one phi, one device's Y, near one device's phi")
+    check(all(r["f64"] == (8, 0, 0) for r in (g4, g22)), "K1 float64 on 4 row blocks, twice")
+    per_path["grid_mesh"] = dict(launches=g4["f64"][0] + g22["f64"][0])
+    (t4,), tr4 = mesh_tet[0]
+    (t22,), tr22 = mesh_tet[1]
+    one_cr = tet["CR"][1]
+    rel_t = rel(tr4.phi, one_cr.phi)
+    print(f"  bunny_dec CR on 1 x 4: {t4['s']:.3f} s, iters {t4['stats']['iters']} (one device "
+          f"{tet['CR'][0]['stats']['iters']}), K1 float64 partial + merge {t4['f64'][1:]}; "
+          f"2 x 2 {t22['s']:.3f} s; 1 x 4 = 2 x 2 bit for bit {t4['phi'] == t22['phi']}; rel-L2 "
+          f"vs one device {rel_t:.3e}, max |diff| / max |phi| "
+          f"{np.abs(tr4.phi - one_cr.phi).max() / np.abs(one_cr.phi).max():.3e} "
+          f"(limit {F64_TET_MESH_REL_L2_MAX:g}) ({smi})")
+    check(t4["phi"] == t22["phi"] and rel_t <= F64_TET_MESH_REL_L2_MAX
+          and all(r["f64"] == (0, 16, 4) and r["k2"] == 0 for r in (t4, t22)),
+          "bunny_dec CR in float64 on the meshes: one phi, the ring's float64 kernels")
+    per_path["tet_ring"] = dict(launches=sum(sum(r["f64"][1:]) for r in (t4, t22)))
+
+    # --- (f) the CLI
+    with tempfile.TemporaryDirectory() as tmp:
+        phi_path = os.path.join(tmp, "phi.npy")
+        cmd = [sys.executable, "-m", "shm3d_torch.cli", BUNNY, "--grid", "--dtype", "float64",
+               "--device", "cuda", "--no-disk-cache", "--export-phi", phi_path, "--json"]
+        t0 = time.perf_counter()
+        out = subprocess.run(cmd, capture_output=True, text=True, cwd=REPO, timeout=600,
+                             env=dict(os.environ, PYTHONPATH=REPO))
+        check(out.returncode == 0, f"the float64 CLI exits 0 ({out.stderr[-1500:]})")
+        phi = np.load(phi_path)
+    print(f"  cli: {' '.join(cmd[1:])}: {time.perf_counter() - t0:.2f} s, summary "
+          f"{out.stdout.strip().splitlines()[-1]}")
+    check(phi.dtype == np.float64 and bool(np.isfinite(phi).all()),
+          "the float64 CLI wrote a finite phi on the card")
+    print(f"  phase 20 {time.perf_counter() - t_phase:.1f} s; float64 K1 launches per path "
+          f"{ {k: v['launches'] for k, v in per_path.items()} }")
+    entry.update(launches=sum(v["launches"] for v in per_path.values()), per_path=per_path)
+    return entry
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check "
@@ -2238,6 +2675,10 @@ def main() -> int:
     tet_ring_k1, tet_mesh_k2 = tet_mesh_phase(smi, dev, sfu, tet_one)
     stamp("tet mesh phase")
     check_no_jax_package()
+    k1_f64 = f64_phase(smi, dev, geom, dict(plan=plan, points=pts, vectors=vecs, lam=lam,
+                                            phi_ref=tier1["phi_ref"]))
+    stamp("float64 on the card")
+    check_no_jax_package()
     # the vertex phase launches the Yukawa kernel at the tet phase's shape
     # (the same conforming mesh), the point cloud and bunny_dec at their own
     tet_k1["launches"] += vertex_k1_launches
@@ -2312,6 +2753,19 @@ def main() -> int:
         "bound_by": "bytes",
         "library_ms": total(k2_paths, "library_ms"),
         "per_path": k2_paths,
+    }, {
+        "name": "yukawa_field_f64",
+        "route": "cuda",
+        "source": "shm3d_torch/csrc/yukawa.cu",
+        "replaces": "shm3d/ops/yukawa.py:129",
+        "launches": k1_f64["launches"],
+        "max_abs_err": k1_f64["max_abs_err"],
+        "ms": k1_f64["ms"],
+        "plain_ms": k1_f64["plain_ms"],
+        "bound_ms": k1_f64["bound_ms"],
+        "bound_by": "operations",
+        "library_ms": None,
+        "per_path": k1_f64["per_path"],
     }, k3_entry]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

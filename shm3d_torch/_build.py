@@ -170,25 +170,30 @@ def load_library() -> ctypes.CDLL:
         log = so.with_suffix(".log")
         BUILD_INFO.update(seconds=0.0, log=log.read_text() if log.exists() else "")
     lib = ctypes.CDLL(str(so))
-    lib.shm3d_yukawa_f32.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-    ]
-    lib.shm3d_yukawa_f32.restype = ctypes.c_int
-    lib.shm3d_yukawa_partials_f32.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_float,
-        ctypes.c_int, ctypes.c_void_p,
-    ]
-    lib.shm3d_yukawa_partials_f32.restype = ctypes.c_int
-    lib.shm3d_yukawa_merge_f32.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-    ]
-    lib.shm3d_yukawa_merge_f32.restype = ctypes.c_int
-    lib.shm3d_yukawa_chunk_len.argtypes = [ctypes.c_int64, ctypes.c_int64, ctypes.c_int]
-    lib.shm3d_yukawa_chunk_len.restype = ctypes.c_int64
+    for suffix, scalar in (("f32", ctypes.c_float), ("f64", ctypes.c_double)):
+        fn = getattr(lib, f"shm3d_yukawa_{suffix}")
+        fn.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+            scalar, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ]
+        fn.restype = ctypes.c_int
+        fn = getattr(lib, f"shm3d_yukawa_partials_{suffix}")
+        fn.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, scalar,
+            ctypes.c_int, ctypes.c_void_p,
+        ]
+        fn.restype = ctypes.c_int
+        fn = getattr(lib, f"shm3d_yukawa_merge_{suffix}")
+        fn.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+            ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ]
+        fn.restype = ctypes.c_int
+    for fn in (lib.shm3d_yukawa_chunk_len, lib.shm3d_yukawa_chunk_len_f64):
+        fn.argtypes = [ctypes.c_int64, ctypes.c_int64, ctypes.c_int]
+        fn.restype = ctypes.c_int64
     lib.shm3d_yukawa_skeleton_f32.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_float,

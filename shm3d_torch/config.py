@@ -51,8 +51,10 @@ class SignedHeatOptions:
     conforming: bool = True
 
     # --- TPU-framework extensions (absent in the reference) ---
-    # Compute dtype for the device path. float32 is the TPU-native choice;
-    # float64 works on CPU (tests/oracle parity) and, slowly, on TPU.
+    # Compute dtype for the device path. float32 is the fast default;
+    # float64 (the reference's precision) runs natively on the card and on
+    # the CPU: the Yukawa kernel has a float64 instantiation, and the
+    # float64 Step 3 takes the plain operators, not the paged kernel.
     dtype: str = "float32"
     # Step-1 evaluation strategy on the grid domain:
     #   "dense" — exact pairwise kernel at every node (reference semantics,

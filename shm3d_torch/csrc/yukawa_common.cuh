@@ -1,11 +1,13 @@
 // Device code and launch geometry shared by the Yukawa kernel (yukawa.cu)
 // and its speed-of-light probe (yukawa_skeleton.cu): the MUFU wrappers, the
-// clamped squared distance, and the split of the source axis into chunks
-// that fill the card.
+// precision trait that picks a pair's exp2, rsqrt and r^2 floor for each
+// scalar type, the clamped squared distance, and the split of the source
+// axis into chunks that fill the card.
 
 #pragma once
 
 #include <cfloat>
+#include <cmath>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -29,26 +31,61 @@ __device__ __forceinline__ float rsqrt_approx(float x) {
   return y;
 }
 
-// r^2 + FLT_MIN: a query on a source keeps a finite rsqrt and the
-// coincident source dominates, as in the TPU kernel
-__device__ __forceinline__ float dist2(float dx, float dy, float dz) {
-  return fmaf(dz, dz, fmaf(dy, dy, fmaf(dx, dx, FLT_MIN)));
+// A pair's transcendental functions and r^2 floor in each precision.  The
+// float32 pair runs on the MUFU approximations (.approx.ftz, ~2 ulp).  The
+// float64 pair takes libdevice's IEEE exp2 and rsqrt (1 ulp; rsqrt from
+// MUFU.RSQ64H's 20-bit seed and Newton steps on the FP64 pipe): MUFU has no
+// float64 exponential, and a float32 approximation would leave ~7 of the 16
+// digits the float64 path is held to.
+template <typename T>
+struct Precision;
+
+template <>
+struct Precision<float> {
+  static constexpr float tiny = FLT_MIN;
+  static __device__ __forceinline__ float exp2(float x) { return ex2_approx(x); }
+  static __device__ __forceinline__ float rsqrt(float x) { return rsqrt_approx(x); }
+  static __device__ __forceinline__ float fma(float a, float b, float c) { return fmaf(a, b, c); }
+  static __device__ __forceinline__ float max(float a, float b) { return fmaxf(a, b); }
+  static __device__ __forceinline__ float min(float a, float b) { return fminf(a, b); }
+  static __device__ __forceinline__ float sqrt(float x) { return sqrtf(x); }
+};
+
+template <>
+struct Precision<double> {
+  static constexpr double tiny = DBL_MIN;
+  static __device__ __forceinline__ double exp2(double x) { return ::exp2(x); }
+  static __device__ __forceinline__ double rsqrt(double x) { return ::rsqrt(x); }
+  static __device__ __forceinline__ double fma(double a, double b, double c) { return ::fma(a, b, c); }
+  static __device__ __forceinline__ double max(double a, double b) { return ::fmax(a, b); }
+  static __device__ __forceinline__ double min(double a, double b) { return ::fmin(a, b); }
+  static __device__ __forceinline__ double sqrt(double x) { return ::sqrt(x); }
+};
+
+// r^2 + the type's smallest normal (torch.finfo(dtype).tiny in the plain
+// version): a query on a source keeps a finite rsqrt and the coincident
+// source dominates, as in the TPU kernel
+template <typename T>
+__device__ __forceinline__ T dist2(T dx, T dy, T dz) {
+  using F = Precision<T>;
+  return F::fma(dz, dz, F::fma(dy, dy, F::fma(dx, dx, F::tiny)));
 }
 
 // Sources a chunk of `kernel`'s (query block, source chunk) grid holds for Q
 // queries and S sources on CUDA device `device` (a multiple of THREADS, at
-// least THREADS): the chunking that minimizes the waves of blocks times the
-// stages a block runs (plus one stage of fixed cost a block), from the SM
-// count and the kernel's occupancy.  Returns -1 on a CUDA error.
+// least THREADS), for a kernel of `qblock` queries a block: the chunking
+// that minimizes the waves of blocks times the stages a block runs (plus
+// one stage of fixed cost a block), from the SM count and the kernel's
+// occupancy.  Returns -1 on a CUDA error.
 template <typename Kernel>
-int64_t chunk_len(Kernel kernel, int64_t Q, int64_t S, int device) {
+int64_t chunk_len(Kernel kernel, int64_t Q, int64_t S, int device, int64_t qblock = QBLOCK) {
   int sms = 0, per_sm = 0;
   if (cudaSetDevice(device) != cudaSuccess ||
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) != cudaSuccess ||
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, 0) != cudaSuccess)
     return -1;
   const int64_t slots = static_cast<int64_t>(sms) * (per_sm > 0 ? per_sm : 1);
-  const int64_t qblocks = (Q + QBLOCK - 1) / QBLOCK;
+  const int64_t qblocks = (Q + qblock - 1) / qblock;
   const int64_t stages = (S + THREADS - 1) / THREADS;
   int64_t best_len = stages, best_cost = -1;
   for (int64_t c = 1; c <= stages; ++c) {

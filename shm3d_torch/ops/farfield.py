@@ -22,7 +22,7 @@ import torch
 from ..domains.grid import GridSpec
 from ..parallel.shards import broadcast, shard_rows
 
-from .yukawa import QUERY_BLOCK, yukawa_chunk_len, yukawa_field
+from .yukawa import query_block, yukawa_chunk_len, yukawa_field
 
 # copied from shm3d/ops/farfield.py (DEFAULT_SHELL_T, DEFAULT_COARSE_FACTOR)
 DEFAULT_SHELL_T = 8.0
@@ -204,10 +204,12 @@ class DeviceShellPlan:
         return cls(ShellPlan.from_arrays(arrays), device, dtype)
 
 
-def row_blocks(n_rows: int, n_shards: int) -> int:
-    """Rows a shard takes in ``_rowsharded``: an equal share rounded up to
-    the kernel's query block (the last shards take the rest, maybe none)."""
-    return -(-n_rows // (n_shards * QUERY_BLOCK)) * QUERY_BLOCK
+def row_blocks(n_rows: int, n_shards: int, dtype: torch.dtype) -> int:
+    """Rows a shard takes in ``_rowsharded`` for ``dtype`` queries: an equal
+    share rounded up to that kernel's query block (the last shards take the
+    rest, maybe none)."""
+    block = query_block(dtype)
+    return -(-n_rows // (n_shards * block)) * block
 
 
 def _rowsharded(queries, src_points, src_vectors, lam, mesh) -> torch.Tensor:
@@ -218,9 +220,11 @@ def _rowsharded(queries, src_points, src_vectors, lam, mesh) -> torch.Tensor:
     kernel call on its rows, and the rows are gathered back onto the first
     device in order.  The rows split at multiples of the kernel's query
     block and every call takes the whole launch's source chunks, so the
-    field is bitwise equal to one launch over all rows."""
-    step = row_blocks(queries.shape[0], len(mesh))
-    chunk = (yukawa_chunk_len(queries.shape[0], src_points.shape[0], queries.device)
+    field is bitwise equal to one launch over all rows.  The query block
+    and the chunk length are those of the queries' dtype."""
+    step = row_blocks(queries.shape[0], len(mesh), queries.dtype)
+    chunk = (yukawa_chunk_len(queries.shape[0], src_points.shape[0], queries.device,
+                              queries.dtype)
              if queries.device.type == "cuda" else None)
     out = [yukawa_field(queries[k * step:(k + 1) * step].to(dev), p, v, lam, chunk=chunk)
            for k, (dev, p, v) in enumerate(zip(mesh.devices, broadcast(src_points, mesh),

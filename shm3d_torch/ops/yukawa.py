@@ -13,7 +13,12 @@ underflow in float32 (the normalized direction is invariant to exp(-m)).
   sum relative to it, in log2 units; then the merge in chunk order).
 - ``yukawa_field_cuda``: wrapper of the hand-written Hopper kernels
   (``shm3d_torch/csrc/yukawa.cu``: the chunked partial sums and their
-  merge); float32 CUDA tensors only.  ``yukawa_partials_cuda`` and
+  merge), instantiated for float32 and float64 CUDA tensors (the three
+  inputs in one of them; anything else raises).  The float32 pair runs on
+  the MUFU approximations of exp2 and rsqrt; the float64 pair on
+  libdevice's IEEE exp2 and rsqrt on the FP64 pipe, since MUFU has no
+  float64 exponential and its float32 approximations would cost the
+  float64 path 9 of its 16 digits.  ``yukawa_partials_cuda`` and
   ``yukawa_merge_cuda`` launch the two kernels one at a time (the ring
   schedule merges the partials of several source shards).
 - ``yukawa_field``, ``yukawa_partials``, ``yukawa_merge``: dispatch on the
@@ -28,25 +33,40 @@ from typing import Optional
 
 import torch
 
-# Source padding of the plain version's fixed-shape callers: exp(-lam*r)
-# underflows to exactly 0 while 3*_FAR^2 stays finite in float32.
+# Source padding of the fixed-shape callers (the ring's source shards):
+# exp(-lam*r) underflows to exactly 0 while 3*_FAR^2 stays finite, in
+# float32 (3e34 < 3.4e38) and in float64.
 _FAR = 1e17
 
 LOG2E = 1.4426950408889634  # exponents of the chunked form are in log2 units
 
-# Queries a block of the partial kernel (QBLOCK in csrc/yukawa_common.cuh):
-# a query's sum depends on the block's other queries (a thread's four
-# queries rebase together), so launches over rows split at multiples of it,
-# with one chunk length, give each row the arithmetic of one launch.
-QUERY_BLOCK = 1024
+# Queries a block of the partial kernel in each precision (QBLOCK in
+# csrc/yukawa_common.cuh, both instantiations): a query's sum depends on
+# the block's other queries (a thread's four queries rebase together), so
+# launches over rows split at multiples of it, with one chunk length, give
+# each row the arithmetic of one launch.
+_QUERY_BLOCKS = {torch.float32: 1024, torch.float64: 1024}
+_KERNEL_DTYPES = tuple(_QUERY_BLOCKS)
 
-# Launches of the CUDA kernels in this process: KERNEL_LAUNCHES counts
+# Launches of the CUDA kernels in this process, one count per
+# instantiation: KERNEL_LAUNCHES (float32) and KERNEL_LAUNCHES_F64 count
 # ``yukawa_field_cuda`` calls (each launches the partial kernel and its
-# merge), PARTIAL_LAUNCHES and MERGE_LAUNCHES the split entry points
-# ``yukawa_partials_cuda`` and ``yukawa_merge_cuda``, once per call each.
+# merge), PARTIAL_LAUNCHES[_F64] and MERGE_LAUNCHES[_F64] the split entry
+# points ``yukawa_partials_cuda`` and ``yukawa_merge_cuda``, once per call
+# each.
 KERNEL_LAUNCHES = 0
 PARTIAL_LAUNCHES = 0
 MERGE_LAUNCHES = 0
+KERNEL_LAUNCHES_F64 = 0
+PARTIAL_LAUNCHES_F64 = 0
+MERGE_LAUNCHES_F64 = 0
+
+
+def query_block(dtype: torch.dtype) -> int:
+    """Queries a block of the partial kernel for ``dtype`` inputs."""
+    if dtype not in _QUERY_BLOCKS:
+        raise TypeError(f"the CUDA kernel takes float32 or float64, got {dtype}")
+    return _QUERY_BLOCKS[dtype]
 
 
 def pad_sources(points: torch.Tensor, vectors: torch.Tensor, block: int):
@@ -145,11 +165,15 @@ def yukawa_merge_torch(partials: torch.Tensor, normalize: bool = True) -> torch.
     return X * torch.exp2(-m)[:, None]
 
 
-def _check_cuda_f32(name: str, t: torch.Tensor, device: torch.device):
+def _check_cuda(name: str, t: torch.Tensor, device: torch.device, dtype: torch.dtype):
+    """Refuse what a kernel does not take: another dtype than ``dtype``
+    (checked first, so a CPU tensor of the wrong dtype says so), another
+    device than the CUDA ``device``, a shape other than (N, 3), or a
+    non-contiguous layout."""
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: the CUDA kernel takes {dtype} here, got {t.dtype}")
     if t.device != device or t.device.type != "cuda":
         raise ValueError(f"{name}: expected a CUDA tensor on {device}, got {t.device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name}: the CUDA kernel takes float32, got {t.dtype}")
     if t.dim() != 2 or t.shape[1] != 3:
         raise ValueError(f"{name}: expected shape (N, 3), got {tuple(t.shape)}")
     if not t.is_contiguous():
@@ -166,16 +190,55 @@ def _raise_on(lib, err: int, what: str) -> None:
         raise RuntimeError(f"{what} launch failed: {msg} ({err})")
 
 
-def yukawa_chunk_len(Q: int, S: int, device) -> int:
-    """Sources a chunk of the kernel's split holds for Q queries and S
-    sources on a CUDA ``device`` (a multiple of 256): the split that fills
-    the card (``shm3d_yukawa_chunk_len`` in csrc/yukawa.cu)."""
+def _check_inputs(queries, src_points, src_vectors) -> torch.dtype:
+    """The kernel's dtype for these inputs: the queries' float32 or float64,
+    shared by all three, each a contiguous (N, 3) tensor on the queries'
+    CUDA device; raises otherwise."""
+    dtype = queries.dtype
+    query_block(dtype)
+    named = (("queries", queries), ("src_points", src_points), ("src_vectors", src_vectors))
+    for name, t in named:  # every dtype first: a mixed call says so on any device
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: the CUDA kernel takes one dtype, the queries' "
+                            f"{dtype}, got {t.dtype}")
+    for name, t in named:
+        _check_cuda(name, t, queries.device, dtype)
+    if src_points.shape != src_vectors.shape:
+        raise ValueError("src_points and src_vectors must have the same shape")
+    if src_points.shape[0] == 0:
+        raise ValueError("at least one source is required")
+    return dtype
+
+
+def _suffix(dtype: torch.dtype) -> str:
+    return "f64" if dtype == torch.float64 else "f32"
+
+
+def _scalar(dtype: torch.dtype, x: float):
+    """A kernel's scalar argument in its precision (lam2 is a double in the
+    float64 instantiation)."""
+    return ctypes.c_double(x) if dtype == torch.float64 else ctypes.c_float(x)
+
+
+def yukawa_chunk_len(Q: int, S: int, device, dtype: torch.dtype = torch.float32) -> int:
+    """Sources a chunk of the ``dtype`` kernel's split holds for Q queries and
+    S sources on a CUDA ``device`` (a multiple of 256): the split that fills
+    the card, from that instantiation's occupancy
+    (``shm3d_yukawa_chunk_len[_f64]`` in csrc/yukawa.cu)."""
     from .._build import load_library
 
-    chunk = load_library().shm3d_yukawa_chunk_len(Q, S, _index(torch.device(device)))
+    query_block(dtype)
+    lib = load_library()
+    fn = lib.shm3d_yukawa_chunk_len_f64 if dtype == torch.float64 else lib.shm3d_yukawa_chunk_len
+    chunk = fn(Q, S, _index(torch.device(device)))
     if chunk <= 0:
         raise RuntimeError("yukawa kernel: the device's occupancy query failed")
     return int(chunk)
+
+
+def _check_chunk(chunk: int) -> None:
+    if chunk <= 0 or chunk % 256:
+        raise ValueError(f"chunk={chunk}: a positive multiple of 256 is required")
 
 
 def yukawa_field_cuda(
@@ -186,19 +249,14 @@ def yukawa_field_cuda(
     normalize: bool = True,
     chunk: Optional[int] = None,
 ) -> torch.Tensor:
-    """Launch the Hopper kernel on the current stream (float32, contiguous
-    (N, 3) CUDA tensors on one device).  ``chunk``: sources a chunk (a
+    """Launch the Hopper kernel on the current stream (float32 or float64,
+    one dtype for all three contiguous (N, 3) CUDA tensors on one device;
+    the instantiation of that dtype).  ``chunk``: sources a chunk (a
     multiple of 256; default ``yukawa_chunk_len``, the split that fills the
     card).  Does not synchronize."""
-    global KERNEL_LAUNCHES
+    global KERNEL_LAUNCHES, KERNEL_LAUNCHES_F64
+    dtype = _check_inputs(queries, src_points, src_vectors)
     device = queries.device
-    _check_cuda_f32("queries", queries, device)
-    _check_cuda_f32("src_points", src_points, device)
-    _check_cuda_f32("src_vectors", src_vectors, device)
-    if src_points.shape != src_vectors.shape:
-        raise ValueError("src_points and src_vectors must have the same shape")
-    if src_points.shape[0] == 0:
-        raise ValueError("at least one source is required")
     out = torch.empty_like(queries)
     if queries.shape[0] == 0:
         return out
@@ -206,13 +264,12 @@ def yukawa_field_cuda(
 
     lib = load_library()
     Q, S = queries.shape[0], src_points.shape[0]
-    chunk = yukawa_chunk_len(Q, S, device) if chunk is None else int(chunk)
-    if chunk <= 0 or chunk % 256:
-        raise ValueError(f"chunk={chunk}: a positive multiple of 256 is required")
-    part = torch.empty((-(-S // chunk), Q, 4), dtype=torch.float32, device=device)
+    chunk = yukawa_chunk_len(Q, S, device, dtype) if chunk is None else int(chunk)
+    _check_chunk(chunk)
+    part = torch.empty((-(-S // chunk), Q, 4), dtype=dtype, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.shm3d_yukawa_f32(
+        err = getattr(lib, f"shm3d_yukawa_{_suffix(dtype)}")(
             ctypes.c_void_p(queries.data_ptr()),
             ctypes.c_void_p(src_points.data_ptr()),
             ctypes.c_void_p(src_vectors.data_ptr()),
@@ -221,13 +278,16 @@ def yukawa_field_cuda(
             ctypes.c_int64(Q),
             ctypes.c_int64(S),
             ctypes.c_int64(chunk),
-            ctypes.c_float(float(lam) * LOG2E),
+            _scalar(dtype, float(lam) * LOG2E),
             ctypes.c_int(1 if normalize else 0),
             ctypes.c_int(_index(device)),
             ctypes.c_void_p(stream),
         )
     _raise_on(lib, err, "yukawa kernel")
-    KERNEL_LAUNCHES += 1
+    if dtype == torch.float64:
+        KERNEL_LAUNCHES_F64 += 1
+    else:
+        KERNEL_LAUNCHES += 1
     return out
 
 
@@ -239,22 +299,15 @@ def yukawa_partials_cuda(
     chunk: int,
 ) -> torch.Tensor:
     """Launch the partial kernel alone on the current stream of the
-    queries' device: (C, Q, 4) float32 partials over source chunks of
-    ``chunk`` sources (a multiple of 256; ``yukawa_chunk_len``), C =
-    ceil(S / chunk).  Does not synchronize."""
-    global PARTIAL_LAUNCHES
+    queries' device: (C, Q, 4) partials in the inputs' dtype (float32 or
+    float64) over source chunks of ``chunk`` sources (a multiple of 256;
+    ``yukawa_chunk_len``), C = ceil(S / chunk).  Does not synchronize."""
+    global PARTIAL_LAUNCHES, PARTIAL_LAUNCHES_F64
+    dtype = _check_inputs(queries, src_points, src_vectors)
     device = queries.device
-    _check_cuda_f32("queries", queries, device)
-    _check_cuda_f32("src_points", src_points, device)
-    _check_cuda_f32("src_vectors", src_vectors, device)
-    if src_points.shape != src_vectors.shape:
-        raise ValueError("src_points and src_vectors must have the same shape")
     Q, S = queries.shape[0], src_points.shape[0]
-    if S == 0:
-        raise ValueError("at least one source is required")
-    if chunk <= 0 or chunk % 256:
-        raise ValueError(f"chunk={chunk}: a positive multiple of 256 is required")
-    part = torch.empty((-(-S // chunk), Q, 4), dtype=torch.float32, device=device)
+    _check_chunk(chunk)
+    part = torch.empty((-(-S // chunk), Q, 4), dtype=dtype, device=device)
     if Q == 0:
         return part
     from .._build import load_library
@@ -262,35 +315,39 @@ def yukawa_partials_cuda(
     lib = load_library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.shm3d_yukawa_partials_f32(
+        err = getattr(lib, f"shm3d_yukawa_partials_{_suffix(dtype)}")(
             ctypes.c_void_p(queries.data_ptr()),
             ctypes.c_void_p(src_points.data_ptr()),
             ctypes.c_void_p(src_vectors.data_ptr()),
             ctypes.c_void_p(part.data_ptr()),
             ctypes.c_int64(Q), ctypes.c_int64(S), ctypes.c_int64(chunk),
-            ctypes.c_float(float(lam) * LOG2E),
+            _scalar(dtype, float(lam) * LOG2E),
             ctypes.c_int(_index(device)), ctypes.c_void_p(stream),
         )
     _raise_on(lib, err, "yukawa partial kernel")
-    PARTIAL_LAUNCHES += 1
+    if dtype == torch.float64:
+        PARTIAL_LAUNCHES_F64 += 1
+    else:
+        PARTIAL_LAUNCHES += 1
     return part
 
 
 def yukawa_merge_cuda(partials: torch.Tensor, normalize: bool = True) -> torch.Tensor:
     """Launch the merge kernel alone on the current stream of the partials'
-    device: (C, Q, 4) float32 partials, any C, merged in order along C ->
-    (Q, 3).  Does not synchronize."""
-    global MERGE_LAUNCHES
+    device: (C, Q, 4) float32 or float64 partials, any C, merged in order
+    along C -> (Q, 3) in their dtype.  Does not synchronize."""
+    global MERGE_LAUNCHES, MERGE_LAUNCHES_F64
     device = partials.device
-    if device.type != "cuda" or partials.dtype != torch.float32:
-        raise TypeError(f"partials: expected float32 on a CUDA device, got "
-                        f"{partials.dtype} on {device}")
+    dtype = partials.dtype
+    if device.type != "cuda" or dtype not in _KERNEL_DTYPES:
+        raise TypeError(f"partials: expected float32 or float64 on a CUDA device, got "
+                        f"{dtype} on {device}")
     if partials.dim() != 3 or partials.shape[2] != 4 or partials.shape[0] == 0:
         raise ValueError(f"partials: expected shape (C >= 1, Q, 4), got {tuple(partials.shape)}")
     if not partials.is_contiguous():
         raise ValueError("partials: expected a contiguous tensor")
     C, Q = partials.shape[0], partials.shape[1]
-    out = torch.empty((Q, 3), dtype=torch.float32, device=device)
+    out = torch.empty((Q, 3), dtype=dtype, device=device)
     if Q == 0:
         return out
     from .._build import load_library
@@ -298,13 +355,16 @@ def yukawa_merge_cuda(partials: torch.Tensor, normalize: bool = True) -> torch.T
     lib = load_library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.shm3d_yukawa_merge_f32(
+        err = getattr(lib, f"shm3d_yukawa_merge_{_suffix(dtype)}")(
             ctypes.c_void_p(partials.data_ptr()), ctypes.c_void_p(out.data_ptr()),
             ctypes.c_int64(Q), ctypes.c_int64(C), ctypes.c_int(1 if normalize else 0),
             ctypes.c_int(_index(device)), ctypes.c_void_p(stream),
         )
     _raise_on(lib, err, "yukawa merge kernel")
-    MERGE_LAUNCHES += 1
+    if dtype == torch.float64:
+        MERGE_LAUNCHES_F64 += 1
+    else:
+        MERGE_LAUNCHES += 1
     return out
 
 

@@ -24,7 +24,7 @@ import ctypes
 
 import torch
 
-from .yukawa import _check_cuda_f32, _index
+from .yukawa import _check_cuda, _index
 
 # Launches of the CUDA kernel in this process (incremented by
 # ``skeleton_sum_cuda`` only, once per call; a call launches the partial
@@ -84,8 +84,8 @@ def skeleton_sum_cuda(queries: torch.Tensor, src_points: torch.Tensor,
     (N, 3) CUDA tensors on one device).  Does not synchronize."""
     global KERNEL_LAUNCHES
     device = queries.device
-    _check_cuda_f32("queries", queries, device)
-    _check_cuda_f32("src_points", src_points, device)
+    _check_cuda("queries", queries, device, torch.float32)
+    _check_cuda("src_points", src_points, device, torch.float32)
     if src_points.shape[0] == 0:
         raise ValueError("at least one source is required")
     out = queries.new_empty(queries.shape[0])

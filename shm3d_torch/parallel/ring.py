@@ -12,9 +12,11 @@ next shard's device.
   pass over ``"d"`` (the shards come home within the slice), then one
   forward of the slice's shards over ``"s"``.
 
-On every hop a shard runs K1's partial kernel (``yukawa_partials``) on its
-resident queries against the source shard it holds, keeping per source
-chunk a reference exponent and the sum relative to it.  At the end one
+On every hop a shard runs K1's partial kernel (``yukawa_partials``, the
+instantiation of the queries' dtype, float32 or float64, with that
+kernel's chunk length) on its resident queries against the source shard
+it holds, keeping per source chunk a reference exponent and the sum
+relative to it.  At the end one
 merge (``yukawa_merge``) combines all hops' partials in the sources'
 home-shard order, not in hop order, so the result depends on neither the
 mesh's shape nor the hop schedule: a 1-D and a 2-D mesh over the same
@@ -84,7 +86,7 @@ def yukawa_field_ring(
     partials = [[None] * P for _ in range(P)]  # [device][home shard]
     for step, homes in enumerate(schedule):
         for i, (q, home) in enumerate(zip(q_parts, homes)):
-            chunk = (yukawa_chunk_len(q.shape[0], sp[i].shape[0], q.device)
+            chunk = (yukawa_chunk_len(q.shape[0], sp[i].shape[0], q.device, dtype)
                      if q.device.type == "cuda" else sp[i].shape[0])
             partials[i][home] = yukawa_partials(q, sp[i], sv[i], lam, chunk, q_tile)
         if step + 1 < len(schedule):

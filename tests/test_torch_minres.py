@@ -350,9 +350,8 @@ def test_minres_kkt_mesh_at_200_iterations_within_rounding():
 
 @pytest.mark.cuda
 def test_cuda_minres_kkt_matches_cpu(one_device16):
-    """Step 3 in float64 on the card, given the CPU solve's Y (K1 takes
-    float32 only, so a float64 Step 1 does not run on the card), against
-    the CPU's u."""
+    """Step 3 in float64 on the card, given the CPU solve's Y (so that only
+    Step 3's summation order differs), against the CPU's u."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
     s1, res, cached = one_device16
