@@ -131,7 +131,26 @@ Run from the repository root:  python3 chip_smoke.py
     CR and vertex against the same solves on this machine's CPU, knot_dec
     CR (cold) against the JAX package's float32 numbers; (e) the grid and
     bunny_dec CR on 1 x 4 and 2 x 2 meshes of the card; (f) the CLI with
-    ``--dtype float64``.
+    ``--dtype float64``;
+21. the Krylov iterations as CUDA graphs (``shm3d_torch/solve/graphs.py``):
+    on the main path at 128^3 (fast and default tier), the 256^3 fast tier,
+    knot_dec CR, knot_dec vertex, the point cloud's NONE mode and MINRES at
+    200 iterations, warm solves on the eager loops and on the graphs in
+    turns (eager, graph, graph, eager) on the same solver, held bit for bit
+    equal (phi, iterations, residuals) with equal K1 and K2 launches, and
+    one profiled solve of each: the host's kernel launch calls and graph
+    launches, the device's kernel events, the device-busy share,
+    mem_peak_mb, and in every Krylov loop of the graphed solve one graph
+    launch an iteration with no kernel launch between them.
+
+Every one-device solve on the card replays its Krylov iterations as CUDA
+graphs: the eager loops (``krylov.cg``, ``krylov.minres``) are replaced by
+guards that fail the run on one device's CUDA vectors, except in phase 21's
+eager turns and the tet domain's row-split mesh solves, which stay eager by
+design (z-slab solves pass).  The earlier phases' readings repeat those
+taken on the eager loops before the graphs: checked where PERF.md records
+them (the main path's iterations and rel-L2, the face and vertex
+iterations, MINRES's iterations and phibar, the float64 iterations).
 
 Each grid phase prints the projector's tier it took (bmat, full-row,
 subsampled or host-projected).  Every kernel's launch count is set to 0 just before the path that runs it
@@ -284,6 +303,20 @@ F64_TET_MESH_REL_L2_MAX = 1e-8
 F64_KNOT_RESIDUAL_MAX = 1e-4
 F64_PHI_BANDS = dict(min=1e-2, max=1e-3, mean_abs=1e-3, src_mean_abs=1e-3)
 F64_WARM_KNOT_BEFORE_S = 110  # a warm knot_dec solve (~20 s) only if phase 20 stays < 200 s
+
+# the earlier phases' readings on the eager loops (chip runs on an NVIDIA
+# H100 80GB HBM3, 700 W, before the graphs; PERF.md), which the iteration
+# graphs repeat bit for bit: the main path's iterations and rel-L2 against |x| - 1, the
+# knot_dec face and vertex iterations, MINRES at 128^3, and in float64
+# sphere52k-128 (iterations, residual), bunny_dec CR and knot_dec CR
+EAGER_MAIN = (16, "8.774781e-03")
+EAGER_FACE_ITERS, EAGER_VERTEX_ITERS = 341, 362
+EAGER_MINRES = (3973, "1.3055e-02")
+EAGER_F64_GRID = (76, "8.6153e-11")
+EAGER_F64_BUNNY_CR_ITERS, EAGER_F64_KNOT_ITERS = 647, 3245
+# phase 21: the stats a graphed solve repeats bit for bit
+GRAPH_STAT_KEYS = ("iters", "rel_res", "residual", "refine_pass_rels", "refine_rel_res",
+                   "correction_iters", "proj_iters", "proj_residual", "proj_refine_pass_rels")
 FP64_LANES = 64                # H100 SXM: FP64 results a clock an SM
 FP64_FLOOR_PER_PAIR = 12       # 3 sub, 3 for r^2, r, the exponent, the weight, 3 sums
 
@@ -312,6 +345,53 @@ def check_no_jax_package() -> None:
     check("jax" not in sys.modules, "JAX was never imported")
     bad = sorted(m for m in sys.modules if m == "shm3d" or m.startswith("shm3d."))
     check(not bad, f"no module of the JAX package was imported ({bad[:5]})")
+
+
+# Every one-device solve on the card replays its Krylov iterations as CUDA
+# graphs.  The eager loops run there only where a phase asks for them:
+# phase 21's comparison and the tet domain's row-split mesh solves, which
+# stay eager by design.
+EAGER_LOOPS = {"allowed": False}
+# phase 21's paths, registered by the phases that drive them first:
+# name -> (solver, geometry, options)
+GRAPH_PATHS = {}
+
+
+def refuse_eager_loops(krylov, graphs):
+    """``krylov.cg`` and ``krylov.minres`` replaced by guards that fail the
+    run when they get one CUDA device's vectors outside ``eager_allowed``
+    (such a solve must replay its iteration graph); z-slabs pass."""
+    for name in ("cg", "minres"):
+        def guard(matvec, b, *args, _loop=getattr(krylov, name), _name=name, **kwargs):
+            if graphs.one_cuda_vector(b) and not EAGER_LOOPS["allowed"]:
+                check(False, f"a solve on the card ran the eager {_name} loop")
+            return _loop(matvec, b, *args, **kwargs)
+
+        setattr(krylov, name, guard)
+
+
+@contextlib.contextmanager
+def eager_allowed():
+    prev, EAGER_LOOPS["allowed"] = EAGER_LOOPS["allowed"], True
+    try:
+        yield
+    finally:
+        EAGER_LOOPS["allowed"] = prev
+
+
+@contextlib.contextmanager
+def eager_loops():
+    """One-device solves on the eager loops (``graphs.runner`` gives no
+    graph), for phase 21's comparison."""
+    from shm3d_torch.solve import graphs
+
+    saved = graphs.runner
+    graphs.runner = lambda cache, key, b: None
+    try:
+        with eager_allowed():
+            yield
+    finally:
+        graphs.runner = saved
 
 
 def smi_query(field: str) -> str:
@@ -647,6 +727,9 @@ def tet_phase(smi, dev, ceiling):
     check(isinstance(L, pell.SellMat) and P.nnz == KNOT_L_NNZ and L.nnz == nonzeros,
           f"face operator of nnz {KNOT_L_NNZ} in sliced ELL with its {nonzeros} nonzeros")
     check(res.mesh.n_faces == KNOT_FACES, "conforming mesh face count")
+    check(all(r["stats"]["iters"] == EAGER_FACE_ITERS for r in runs),
+          f"the face solves repeat the eager loops' {EAGER_FACE_ITERS} iterations")
+    GRAPH_PATHS["knot_dec CR"] = (solver, geom, opts)
 
     phi = res.phi
     check(phi.shape == (KNOT_VERTICES,), "phi shape")
@@ -852,6 +935,9 @@ def vertex_phase(smi, dev):
           "every vertex-path solve launched both kernels")
     check(isinstance(H, pell.SellMat), "the float32 vertex operator is sliced ELL on the card")
     check(all(r["stats"]["residual"] <= VERTEX_RESIDUAL_MAX for r in runs), "vertex residual")
+    check(all(r["stats"]["iters"] == EAGER_VERTEX_ITERS for r in runs),
+          f"the vertex solves repeat the eager loops' {EAGER_VERTEX_ITERS} iterations")
+    GRAPH_PATHS["knot_dec vertex"] = (solver, geom, opts)
     check_phi_bands(res, JAX_VERTEX, "vertex path")
 
     # the divergence twice on the solve's own field
@@ -887,9 +973,12 @@ def vertex_phase(smi, dev):
           f"bytes {useful / 1e6:.2f} MB = {useful / HBM_BYTES_S * 1e3:.4f} ms at 3.35 TB/s "
           f"({smi})")
     # warm solves with H through the plain gathers, for the routing decision
+    # (the vertex graphs read the operator they captured: dropped with it)
     cached["H_ell"] = H_plain
+    cached.pop("vertex_graphs")
     plain_runs, plain_res = timed_solves(solver, geom, opts, 3, yk, pell)
     cached["H_ell"] = H
+    cached.pop("vertex_graphs")
     print(f"  warm solves with H through the plain gathers: "
           f"{[round(r['s'], 4) for r in plain_runs]} s, iters "
           f"{[r['stats']['iters'] for r in plain_runs]}, sliced-ELL launches "
@@ -949,6 +1038,7 @@ def cloud_phase(smi, dev):
     check(all(r["stats"]["residual"] <= VERTEX_RESIDUAL_MAX for r in runs),
           "point-cloud residual")
     check_phi_bands(res, JAX_CLOUD, "point cloud")
+    GRAPH_PATHS["knot_dec point cloud NONE"] = (solver, cloud, opts)
     cached = next(iter(solver._impl._cache.values()))
     k1 = k1_at(yk, cached, opts, smi, "point-cloud barycenters")
     k1["launches"] = k1_launches
@@ -1447,7 +1537,7 @@ def tet_mesh_phase(smi, dev, sfu, one):
             yk.KERNEL_LAUNCHES = yk.PARTIAL_LAUNCHES = yk.MERGE_LAUNCHES = 0
             pell.KERNEL_LAUNCHES = 0
             rows.ROW_BLOCK_LAUNCHES = rows.BROADCASTS = 0
-            with no_plain_yukawa(yk), no_plain_sell(pell):
+            with no_plain_yukawa(yk), no_plain_sell(pell), eager_allowed():
                 s4 = SignedHeatTetSolver(mesh=mesh4)
                 runs4, res4 = timed_solves(s4, geom, opts, 3, yk, pell)
                 s22 = SignedHeatTetSolver(mesh=mesh22)
@@ -1513,7 +1603,7 @@ def tet_mesh_phase(smi, dev, sfu, one):
     # --- Step 3 given one Y: the single device's field into both
     c1, c4 = (next(iter(sv._cache.values())) for sv in (single, s4))
     Y = torch.as_tensor(res1.Y, dtype=torch.float32, device=dev)
-    with no_plain_yukawa(yk), no_plain_sell(pell):
+    with no_plain_yukawa(yk), no_plain_sell(pell), eager_allowed():
         cr = [(c["cr_path"].integrate(Y, opts, src_face_components=c["cr_face_components"],
                                       src_face_areas=c["cr_face_areas"]),
                dict(c["cr_path"].last_stats)) for c in (c1, c4)]
@@ -1578,7 +1668,7 @@ def tet_mesh_phase(smi, dev, sfu, one):
     del ring4, ring22, one_launch, plain
 
     # --- launches of one warm mesh solve against one device's
-    with no_plain_yukawa(yk), no_plain_sell(pell):
+    with no_plain_yukawa(yk), no_plain_sell(pell), eager_allowed():
         prof = profile_solve("warm CR solve on 4 shards", lambda: s4.compute_distance(geom, opts),
                              statistics.median(warm), smi)
     print(f"  a warm mesh solve: {prof['launches']} launches, {prof['kernel_ms']:.1f} ms of kernel "
@@ -1627,6 +1717,7 @@ def grid256_phase(smi, dev, sfu, geom, analytic_128):
     opts = SignedHeatOptions(dtype="float32", h_coef=H_COEF_256, refine_steps=0,
                              solver_maxiter=2000, step1_method="auto", disk_cache=False)
     solver = SignedHeatSolver("grid", device=dev)
+    GRAPH_PATHS["sphere52k-256 fast tier"] = (solver, geom, opts)
     yk.KERNEL_LAUNCHES = 0
     fast, res_fast = timed_solves(solver, geom, opts, 4, yk, pell)
     # the default tier's warm solves take 8-9 s each: one cold and one warm
@@ -2082,6 +2173,8 @@ def minres_phase(smi, dev, solver, geom, opts, main):
           f"{MINRES_ANALYTIC_BAND:.0%}) ({smi})")
     check(st_d["step3_path"] == "minres-kkt" and launches == 2 and len(entering) == 1,
           "the MINRES solve took its path with K1 twice")
+    check((st_d["iters"], f"{st_d['rel_res']:.4e}") == EAGER_MINRES,
+          f"MINRES repeats the eager loops' {EAGER_MINRES[0]} iterations to phibar {EAGER_MINRES[1]}")
     check(bool(np.isfinite(res_b.phi).all()), "MINRES phi finite")
     check(torch.equal(res_d.Y, main["Y"]), "the MINRES solve's Step-1 field is the main path's")
     check(rel_fast <= MINRES_REL_L2_FAST_MAX, "MINRES phi near the fast tier's")
@@ -2099,6 +2192,7 @@ def minres_phase(smi, dev, solver, geom, opts, main):
 
     # --- (c) 200 iterations: one phi twice, and four shards of the card
     o200 = kkt.with_(solver_maxiter=200)
+    GRAPH_PATHS["sphere52k-128 MINRES, 200 iterations"] = (solver, geom, o200)
     (ra, _, sta), (rb, _, _) = one(solver, o200), one(solver, o200)
     with no_plain_yukawa(yk):
         profile_solve("20-iteration MINRES solve",
@@ -2335,6 +2429,8 @@ def f64_phase(smi, dev, geom, main):
     check(all(r["stats"]["tier"] == "host-projected" for r in runs),
           "float64 at 128^3 takes the host-projected tier")
     check(all(r["stats"]["rel_res"] <= F64_RESIDUAL_MAX for r in runs), "float64 residual")
+    check(all((r["stats"]["iters"], f"{r['stats']['rel_res']:.4e}") == EAGER_F64_GRID
+              for r in runs), f"float64 sphere52k-128 repeats the eager loops' {EAGER_F64_GRID}")
     check(len({r["phi"] for r in runs}) == 1 and bool(np.isfinite(res.phi).all()),
           "the float64 solves give one finite phi")
     check(band <= ANALYTIC_BAND, "float64 analytic rel-L2 within 10% of the JAX package")
@@ -2431,7 +2527,9 @@ def f64_phase(smi, dev, geom, main):
                 cpu = cpu_solver.compute_distance(bunny, o)
                 tet[name] = (card_runs[0], card, dict(cpu_solver.last_stats), cpu,
                              time.perf_counter() - t0)
-            mesh_tet = [on_card(SignedHeatSolver("tet", mesh=m), bunny, b64) for m in (mesh4, mesh22)]
+            with eager_allowed():  # the row-split solves stay eager
+                mesh_tet = [on_card(SignedHeatSolver("tet", mesh=m), bunny, b64)
+                            for m in (mesh4, mesh22)]
         finally:
             if saved is None:
                 del os.environ["SHM3D_CACHE_DIR"]
@@ -2449,6 +2547,8 @@ def f64_phase(smi, dev, geom, main):
         check(rel_cpu <= F64_CPU_REL_L2_MAX and r["f64"] == (1, 0, 0) and r["k2"] == 0
               and r["f32"] == 0, f"bunny_dec {name} in float64 on the card near the CPU's")
     per_path["tet_bunny"] = dict(launches=sum(v[0]["f64"][0] for v in tet.values()))
+    check(tet["CR"][0]["stats"]["iters"] == EAGER_F64_BUNNY_CR_ITERS,
+          f"bunny_dec CR in float64 repeats the eager loops' {EAGER_F64_BUNNY_CR_ITERS} iterations")
 
     knot = read_geometry(KNOT)
     k_solver = SignedHeatSolver("tet", device=dev)
@@ -2469,6 +2569,8 @@ def f64_phase(smi, dev, geom, main):
               and r["k2"] == 0, "knot_dec CR in float64: residuals, K1 float64 once, no K2")
     check(len({(r["phi"], r["stats"]["iters"]) for r in kruns}) == 1,
           "the knot_dec float64 solves give one phi")
+    check(kruns[0]["stats"]["iters"] == EAGER_F64_KNOT_ITERS,
+          f"knot_dec CR in float64 repeats the eager loops' {EAGER_F64_KNOT_ITERS} iterations")
     check_bands(kres, dict(min=JAX_PHI_MIN, max=JAX_PHI_MAX, mean_abs=JAX_PHI_MEAN_ABS,
                            src_mean_abs=JAX_PHI_MEAN_ABS_SRC), F64_PHI_BANDS,
                 "knot_dec CR in float64")
@@ -2526,6 +2628,165 @@ def f64_phase(smi, dev, geom, main):
     entry.update(launches=sum(v["launches"] for v in per_path.values()), per_path=per_path)
     return entry
 
+def krylov_loops(st) -> list:
+    """The iterations of each Krylov loop a solve ran, in order, from its
+    stats: the tet paths' chunks (face or vertex solves, then the CR
+    projection's), the grid's primary solve and its correction solves."""
+    if "chunks" in st:
+        loops = [c["iters"] for c in st["chunks"] + st.get("proj_chunks", [])]
+    else:
+        loops = [st["iters"]] + list(st.get("correction_iters", []))
+    return [k for k in loops if k > 0]
+
+
+def launch_profile(fn) -> dict:
+    """One solve under torch.profiler with device activity, which records the
+    host's CUDA API calls too, read from the profiler's raw events (building
+    its event tree for ~300k events would take longer than the solve): the
+    kernel events and their time, the wall time, the host's kernel launch
+    calls (cudaLaunchKernel, cuLaunchKernel) and graph launch calls
+    (cudaGraphLaunch), and the lengths of the runs of graph launches with
+    no kernel launch between them, in host order."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.profiler.kineto_results.events()
+    kernel_ns, n_kernels, host = 0, 0, []
+    for e in events:
+        name = e.name()
+        if str(e.device_type()).endswith("CUDA"):
+            if not name.startswith(("Memcpy", "Memset")):
+                n_kernels += 1
+                kernel_ns += e.duration_ns()
+        elif "LaunchKernel" in name or "GraphLaunch" in name:
+            host.append((e.start_ns(), "GraphLaunch" in name))
+    host.sort()
+    runs, run = [], 0
+    for _, graph in host:
+        if graph:
+            run += 1
+        elif run:
+            runs.append(run)
+            run = 0
+    if run:
+        runs.append(run)
+    n_graph = sum(1 for _, graph in host if graph)
+    return dict(kernels=n_kernels, kernel_ms=kernel_ns / 1e6, wall_ms=wall_ms,
+                launch_calls=len(host) - n_graph, graph_calls=n_graph, graph_runs=runs)
+
+
+def graph_phase(smi):
+    """Phase 21: each path the Krylov iteration graphs serve, warm, against
+    the eager loops on the same solver and discretization: solves in turns
+    (eager, graph, graph, eager) held bit for bit equal (phi, iterations,
+    residuals) with equal K1 and K2 launches, timed; then one profiled solve
+    of each: host launch calls, device kernel events, device-busy share,
+    mem_peak_mb, and every Krylov loop of the graphed solve one graph launch
+    an iteration with no kernel launch between them."""
+    from shm3d_torch.ops import yukawa as yk
+    from shm3d_torch.solve import pell
+
+    t_phase = time.perf_counter()
+    summary = {}
+    print(f"graphs against the eager loops ({smi})")
+    for name, (solver, geom, opts) in GRAPH_PATHS.items():
+        runs = {"eager": [], "graph": []}
+        for mode in ("eager", "graph", "graph", "eager"):
+            with eager_loops() if mode == "eager" else contextlib.nullcontext():
+                k1, k2 = yk.KERNEL_LAUNCHES, pell.KERNEL_LAUNCHES
+                t0 = time.perf_counter()
+                res = solver.compute_distance(geom, opts)
+                torch.cuda.synchronize()
+                st = solver.last_stats
+                runs[mode].append(dict(
+                    s=time.perf_counter() - t0, k1=yk.KERNEL_LAUNCHES - k1,
+                    k2=pell.KERNEL_LAUNCHES - k2, mem=st["mem_peak_mb"],
+                    reserved=torch.cuda.memory_reserved() / 1e6,
+                    stats={k: st.get(k) for k in GRAPH_STAT_KEYS}, loops=krylov_loops(st),
+                    phi=hashlib.sha1(np.ascontiguousarray(res.phi).tobytes()).hexdigest()))
+        prof = {}
+        for mode in ("eager", "graph"):
+            with eager_loops() if mode == "eager" else contextlib.nullcontext():
+                prof[mode] = launch_profile(lambda: solver.compute_distance(geom, opts))
+                prof[mode]["loops"] = krylov_loops(solver.last_stats)
+        e, g = runs["eager"], runs["graph"]
+        for mode, rr in runs.items():  # kernel time over the unprofiled warm median
+            prof[mode]["busy"] = prof[mode]["kernel_ms"] / 1e3 / statistics.median(
+                r["s"] for r in rr)
+        same = len({r["phi"] for r in e + g}) == 1 and all(
+            r["stats"] == e[0]["stats"] for r in e + g)
+        counts = {(r["k1"], r["k2"]) for r in e + g}
+        te, tg = statistics.median(r["s"] for r in e), statistics.median(r["s"] for r in g)
+        print(f"  {name}: eager {[round(r['s'], 4) for r in e]} s, graph "
+              f"{[round(r['s'], 4) for r in g]} s (median {te:.4f} against {tg:.4f} s, "
+              f"{te / tg:.2f}x); bit for bit {same} (iters {e[0]['stats']['iters']}, Krylov "
+              f"loops {e[0]['loops']}); K1, K2 launches a solve {sorted(counts)}")
+        for mode in ("eager", "graph"):
+            p, r = prof[mode], runs[mode][0]
+            print(f"    {mode}: {p['launch_calls']} kernel launch calls and {p['graph_calls']} "
+                  f"graph launches from the host, {p['kernels']} device kernel events, "
+                  f"{p['kernel_ms']:.1f} ms of kernel time ({p['busy']:.1%} of the unprofiled "
+                  f"warm median; {p['wall_ms']:.1f} ms under the profiler); runs of graph "
+                  f"launches {p['graph_runs']}; "
+                  f"mem_peak_mb {r['mem']:.1f}, reserved {r['reserved']:.1f} MB")
+        check(same, f"{name}: the graphed solves repeat the eager loop's phi, iterations "
+              f"and residuals bit for bit")
+        check(len(counts) == 1, f"{name}: equal K1 and K2 launches under both")
+        check(prof["eager"]["graph_calls"] == 0 and prof["eager"]["launch_calls"] > 0,
+              f"{name}: the eager solve launched kernels one at a time")
+        check(sorted(prof["graph"]["graph_runs"]) == sorted(prof["graph"]["loops"])
+              and prof["graph"]["graph_calls"] == sum(prof["graph"]["loops"]),
+              f"{name}: every Krylov loop took one graph launch an iteration and no kernel "
+              f"launch between them")
+        summary[name] = dict(
+            eager_s=[r["s"] for r in e], graph_s=[r["s"] for r in g],
+            iters=e[0]["stats"]["iters"], loops=e[0]["loops"],
+            launch_calls=(prof["eager"]["launch_calls"], prof["graph"]["launch_calls"]),
+            graph_calls=prof["graph"]["graph_calls"],
+            kernels=(prof["eager"]["kernels"], prof["graph"]["kernels"]),
+            busy=(prof["eager"]["busy"], prof["graph"]["busy"]),
+            mem_peak_mb=(e[0]["mem"], g[0]["mem"]))
+    pools = graph_pools()
+    print(f"  the graphs' private memory pools (reserved MB, from the allocator's snapshot): "
+          f"{json.dumps(pools) if pools is not None else 'not measured (no pool ids)'}")
+    print(f"  phase 21 {time.perf_counter() - t_phase:.1f} s; summary {json.dumps(summary)}")
+    return summary
+
+
+def graph_pools():
+    """Reserved MB of each iteration graph's private memory pool, by path
+    and graph key, summed over the allocator's segments of that pool; None
+    when the allocator's snapshot is not available or names no pools."""
+    from shm3d_torch.solve import graphs
+
+    try:  # a private API of torch's allocator: its absence is "not measured"
+        segments = torch.cuda.memory._snapshot()["segments"]
+    except Exception:  # noqa: BLE001
+        return None
+    if not all("segment_pool_id" in seg for seg in segments):
+        return None
+    by_pool = {}
+    for seg in segments:
+        pool = tuple(seg["segment_pool_id"])
+        by_pool[pool] = by_pool.get(pool, 0) + seg["total_size"]
+    out, seen = {}, set()
+    for name, (solver, _, _) in GRAPH_PATHS.items():
+        for cached in solver._impl._cache.values():
+            caches = [cached.get("graphs"), cached.get("vertex_graphs"),
+                      getattr(cached.get("cr_path"), "graphs", None)]
+            for cache in filter(None, caches):
+                for key, g in cache.items():
+                    if isinstance(g, graphs.IterationGraph) and id(g) not in seen:
+                        seen.add(id(g))
+                        pool = tuple(g.graphs[0].pool())
+                        out[f"{name}: {key}"] = round(by_pool.get(pool, 0) / 1e6, 1)
+    return out
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -2540,7 +2801,7 @@ def main() -> int:
     from shm3d_torch.ops import yukawa as yk
     from shm3d_torch.ops import yukawa_skeleton as ys
     from shm3d_torch.ops.farfield import DeviceShellPlan, _positions_of
-    from shm3d_torch.solve import ell, pell
+    from shm3d_torch.solve import ell, graphs, krylov, pell
 
     check(os.path.dirname(os.path.abspath(shm3d_torch.__file__)) ==
           os.path.join(REPO, "shm3d_torch"), "shm3d_torch imported from this checkout")
@@ -2555,6 +2816,7 @@ def main() -> int:
     dev = resolve_device("cuda")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python "
           f"{sys.version.split()[0]} device {torch.cuda.get_device_name(0)}")
+    refuse_eager_loops(krylov, graphs)
 
     # --- build ---------------------------------------------------------
     t0 = time.perf_counter()
@@ -2623,7 +2885,11 @@ def main() -> int:
           f"{ANALYTIC_BAND:.0%})")
     check(finite, "phi finite")
     check(band <= ANALYTIC_BAND, "analytic rel-L2 within 10% of the JAX package")
+    check((stats["iters"], f"{rel:.6e}") == EAGER_MAIN,
+          f"the main path repeats the eager loops' {EAGER_MAIN[0]} iterations and rel-L2 {EAGER_MAIN[1]}")
     check_no_jax_package()
+    GRAPH_PATHS["sphere52k-128 fast tier"] = (solver, geom, opts)
+    GRAPH_PATHS["sphere52k-128 default tier"] = (solver, geom, opts.with_(refine_steps=1))
 
     # --- the kernel at the main path's shapes --------------------------------
     plan = next(v for v in cached.values() if isinstance(v, DeviceShellPlan))
@@ -2678,6 +2944,9 @@ def main() -> int:
     k1_f64 = f64_phase(smi, dev, geom, dict(plan=plan, points=pts, vectors=vecs, lam=lam,
                                             phi_ref=tier1["phi_ref"]))
     stamp("float64 on the card")
+    check_no_jax_package()
+    graph_phase(smi)
+    stamp("graphs against the eager loops")
     check_no_jax_package()
     # the vertex phase launches the Yukawa kernel at the tet phase's shape
     # (the same conforming mesh), the point cloud and bunny_dec at their own

@@ -33,6 +33,8 @@ from typing import Optional
 
 import torch
 
+from ..solve import graphs
+
 # Source padding of the fixed-shape callers (the ring's source shards):
 # exp(-lam*r) underflows to exactly 0 while 3*_FAR^2 stays finite, in
 # float32 (3e34 < 3.4e38) and in float64.
@@ -53,13 +55,21 @@ _KERNEL_DTYPES = tuple(_QUERY_BLOCKS)
 # ``yukawa_field_cuda`` calls (each launches the partial kernel and its
 # merge), PARTIAL_LAUNCHES[_F64] and MERGE_LAUNCHES[_F64] the split entry
 # points ``yukawa_partials_cuda`` and ``yukawa_merge_cuda``, once per call
-# each.
+# each; a call while a CUDA graph is captured counts at each of the graph's
+# replays instead (``_count``).
 KERNEL_LAUNCHES = 0
 PARTIAL_LAUNCHES = 0
 MERGE_LAUNCHES = 0
 KERNEL_LAUNCHES_F64 = 0
 PARTIAL_LAUNCHES_F64 = 0
 MERGE_LAUNCHES_F64 = 0
+
+
+def _count(counter: str) -> None:
+    """One launch counted in ``counter``: now or, while a CUDA graph is
+    captured (which launches nothing), at each replay of the graph."""
+    if not graphs.note_launch(__name__, counter):
+        globals()[counter] += 1
 
 
 def query_block(dtype: torch.dtype) -> int:
@@ -254,7 +264,6 @@ def yukawa_field_cuda(
     the instantiation of that dtype).  ``chunk``: sources a chunk (a
     multiple of 256; default ``yukawa_chunk_len``, the split that fills the
     card).  Does not synchronize."""
-    global KERNEL_LAUNCHES, KERNEL_LAUNCHES_F64
     dtype = _check_inputs(queries, src_points, src_vectors)
     device = queries.device
     out = torch.empty_like(queries)
@@ -284,10 +293,7 @@ def yukawa_field_cuda(
             ctypes.c_void_p(stream),
         )
     _raise_on(lib, err, "yukawa kernel")
-    if dtype == torch.float64:
-        KERNEL_LAUNCHES_F64 += 1
-    else:
-        KERNEL_LAUNCHES += 1
+    _count("KERNEL_LAUNCHES_F64" if dtype == torch.float64 else "KERNEL_LAUNCHES")
     return out
 
 
@@ -302,7 +308,6 @@ def yukawa_partials_cuda(
     queries' device: (C, Q, 4) partials in the inputs' dtype (float32 or
     float64) over source chunks of ``chunk`` sources (a multiple of 256;
     ``yukawa_chunk_len``), C = ceil(S / chunk).  Does not synchronize."""
-    global PARTIAL_LAUNCHES, PARTIAL_LAUNCHES_F64
     dtype = _check_inputs(queries, src_points, src_vectors)
     device = queries.device
     Q, S = queries.shape[0], src_points.shape[0]
@@ -325,10 +330,7 @@ def yukawa_partials_cuda(
             ctypes.c_int(_index(device)), ctypes.c_void_p(stream),
         )
     _raise_on(lib, err, "yukawa partial kernel")
-    if dtype == torch.float64:
-        PARTIAL_LAUNCHES_F64 += 1
-    else:
-        PARTIAL_LAUNCHES += 1
+    _count("PARTIAL_LAUNCHES_F64" if dtype == torch.float64 else "PARTIAL_LAUNCHES")
     return part
 
 
@@ -336,7 +338,6 @@ def yukawa_merge_cuda(partials: torch.Tensor, normalize: bool = True) -> torch.T
     """Launch the merge kernel alone on the current stream of the partials'
     device: (C, Q, 4) float32 or float64 partials, any C, merged in order
     along C -> (Q, 3) in their dtype.  Does not synchronize."""
-    global MERGE_LAUNCHES, MERGE_LAUNCHES_F64
     device = partials.device
     dtype = partials.dtype
     if device.type != "cuda" or dtype not in _KERNEL_DTYPES:
@@ -361,10 +362,7 @@ def yukawa_merge_cuda(partials: torch.Tensor, normalize: bool = True) -> torch.T
             ctypes.c_int(_index(device)), ctypes.c_void_p(stream),
         )
     _raise_on(lib, err, "yukawa merge kernel")
-    if dtype == torch.float64:
-        MERGE_LAUNCHES_F64 += 1
-    else:
-        MERGE_LAUNCHES += 1
+    _count("MERGE_LAUNCHES_F64" if dtype == torch.float64 else "MERGE_LAUNCHES")
     return out
 
 

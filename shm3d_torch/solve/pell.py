@@ -51,7 +51,7 @@ import torch
 
 from ..parallel import rows
 from ..utils import tree as tree_mod
-from . import ell
+from . import ell, graphs
 
 PAGE = 1024                 # entries per x page / rows per output tile
 _SEG_TILES = 2048           # local_tile must fit in 11 bits (i32 sign-safe)
@@ -61,7 +61,9 @@ _PAGE_BITS = 20             # page must fit below the local_tile field
 SELL_C = 32                 # rows per slice of a SellMat (one warp)
 
 # Launches of the CUDA kernel in this process (incremented by
-# ``sell_matvec_cuda`` only, once per launch: one per matvec).
+# ``sell_matvec_cuda`` only, once per launch: one per matvec; a call while
+# a CUDA graph is captured counts at each of the graph's replays instead,
+# ``_count_launch``).
 KERNEL_LAUNCHES = 0
 
 
@@ -416,7 +418,6 @@ def sell_matvec_cuda(s: SellMat, x: torch.Tensor,
                      n_out: Optional[int] = None) -> torch.Tensor:
     """Launch the Hopper kernel once on the current stream (float32; the
     operator's tensors and x on one CUDA device).  Does not synchronize."""
-    global KERNEL_LAUNCHES
     device = x.device
     _check_cuda("x", x, device, torch.float32)
     _check_x(s, x)
@@ -445,8 +446,16 @@ def sell_matvec_cuda(s: SellMat, x: torch.Tensor,
     if err != 0:
         msg = lib.shm3d_cuda_error_string(err).decode()
         raise RuntimeError(f"sliced-ELL kernel launch failed: {msg} ({err})")
-    KERNEL_LAUNCHES += 1
+    _count_launch()
     return y[:n]
+
+
+def _count_launch() -> None:
+    """One launch of the kernel: counted now or, while a CUDA graph is
+    captured (which launches nothing), at each replay of the graph."""
+    global KERNEL_LAUNCHES
+    if not graphs.note_launch(__name__, "KERNEL_LAUNCHES"):
+        KERNEL_LAUNCHES += 1
 
 
 def sell_matvec(s: SellMat, x: torch.Tensor,

@@ -71,6 +71,7 @@ from ..oracle.reference import integrate_greedily_grid
 from ..parallel import slab
 from ..parallel.ring import yukawa_field_ring
 from ..parallel.shards import DeviceMesh, Shards, shard_rows
+from ..solve import graphs as graph_mod
 from ..solve import krylov, multigrid, projection
 from ..utils import checks
 from ..utils.timing import PhaseTimer
@@ -165,13 +166,15 @@ def _on_device(a: np.ndarray, like, dtype: torch.dtype):
 
 
 def _solve_pinned(b, nodes8, coeffs8, gram, at, cell_size: float, shape, tol: float,
-                  maxiter: int, pins=None, host_gram=None, stats=None):
+                  maxiter: int, pins=None, host_gram=None, stats=None, graphs=None):
     """Projected MG-PCG on P H P u = P b in one run (no restarts).  Returns
     (u, iterations, relative preconditioned residual) with u in ker(A).
     Both the matvec and the preconditioner project: MG applied to an
     unprojected residual builds wrong search directions.  A Gram table
     with neither factor takes the host-projected loop (``host_gram``: the
-    host factor of these rows; ``stats`` its counters)."""
+    host factor of these rows; ``stats`` its counters).  ``graphs``: the
+    discretization's dict of iteration graphs (``solve.graphs``); on one
+    CUDA device each iteration is one replay of the graph kept there."""
     if gram.bmat is None and gram.tmat is None:
         return _solve_pinned_hostproj(b, nodes8, coeffs8, at, host_gram, cell_size,
                                       shape, tol, maxiter, stats)
@@ -188,8 +191,9 @@ def _solve_pinned(b, nodes8, coeffs8, gram, at, cell_size: float, shape, tol: fl
 
     Pb = proj(b)
     rhs_mnorm = math.sqrt(abs(float(krylov.dot(Pb, precond(Pb)))))
-    res = krylov.cg(matvec, Pb, precond=precond, tol=tol, maxiter=maxiter,
-                    rhs_mnorm=rhs_mnorm, stall_window=60)
+    res = krylov.cg_run(matvec, Pb, precond=precond, tol=tol, maxiter=maxiter,
+                        rhs_mnorm=rhs_mnorm, stall_window=60,
+                        runner=graph_mod.runner(graphs, ("projected-cg", shape, b.dtype), Pb))
     rel = res.residual / max(rhs_mnorm, torch.finfo(b.dtype).tiny)
     return res.x, res.iterations, rel
 
@@ -224,6 +228,14 @@ class KKTPair:
     def zeros_like(self):
         return KKTPair(krylov.zeros_like(self.u), torch.zeros_like(self.mu))
 
+    def clone(self):
+        return KKTPair(self.u.clone(), self.mu.clone())
+
+    def copy_(self, o):
+        self.u.copy_(o.u)
+        self.mu.copy_(o.mu)
+        return self
+
 
 def _kkt_matvec(x: KKTPair, nodes8, coeffs8: torch.Tensor, at, cell_size: float,
                 shape) -> KKTPair:
@@ -235,13 +247,13 @@ def _kkt_matvec(x: KKTPair, nodes8, coeffs8: torch.Tensor, at, cell_size: float,
 
 
 def _solve_kkt_minres(b, nodes8, coeffs8: torch.Tensor, at, cell_size: float, shape,
-                      tol: float, maxiter: int):
+                      tol: float, maxiter: int, graphs=None):
     """MINRES on the KKT saddle [[-L, -A^T], [-A, 0]] (u, mu) = (b, 0) from
     zero, in one run of ``maxiter`` (shm3d's ``_solve_kkt_minres`` off the
     TPU, where its chunk is ``maxiter``).  Block-diagonal preconditioner:
     one V-cycle without pin masks on u, and mu over the Schur diagonal
     estimate sum_j c_j^2 / diag(H)[node_j].  Returns (u, iterations, final
-    phibar)."""
+    phibar).  ``graphs`` as in ``_solve_pinned``."""
     diag_H = -stencil.laplacian_diagonal(shape, cell_size, b.dtype, b.device).reshape(-1)
     if isinstance(b, Shards):
         diag_rows = nodes8.values(shard_rows(diag_H, b.mesh))
@@ -258,8 +270,9 @@ def _solve_kkt_minres(b, nodes8, coeffs8: torch.Tensor, at, cell_size: float, sh
 
     rhs = KKTPair(b, coeffs8.new_zeros(coeffs8.shape[0]))
     rhs_mnorm = torch.sqrt(torch.abs(krylov.dot(rhs, precond(rhs))))
-    res = krylov.minres(matvec, rhs, precond=precond, tol=tol, maxiter=maxiter,
-                        rhs_mnorm=rhs_mnorm)
+    res = krylov.minres_run(matvec, rhs, precond=precond, tol=tol, maxiter=maxiter,
+                            rhs_mnorm=rhs_mnorm,
+                            runner=graph_mod.runner(graphs, ("minres-kkt", shape, b.dtype), rhs))
     return res.x.u, res.iterations, res.residual
 
 
@@ -460,6 +473,14 @@ def cached_from_arrays(arrays: dict, device, dtype: torch.dtype) -> dict:
         # factor of all rows, built up front
         cached["host_gram"] = projection.host_gram_factor(nodes8, coeffs8, grid.total_nodes)
     return cached
+
+
+def _graphs(cached) -> dict:
+    """The CUDA graphs of a discretization's Krylov iterations (keyed by
+    solve kind, shape and dtype; ``solve.graphs``), kept in its cache entry
+    beside the tensors they read.  Solves on z-slabs run eagerly and keep
+    none."""
+    return cached.setdefault("graphs", {})
 
 
 def _tier(cached) -> str:
@@ -663,14 +684,14 @@ class GridSolver:
                 # resid: the absolute phibar, as shm3d records it
                 u, iters, resid = _solve_kkt_minres(
                     b, cached["pin_nodes8"], cached["pin_coeffs8"], cached["pin_at"], cell,
-                    grid.shape, tol, options.solver_maxiter)
+                    grid.shape, tol, options.solver_maxiter, _graphs(cached))
             else:
                 host_loop = {}
                 u, iters, resid = _solve_pinned(
                     b, cached["pin_nodes8"], cached["pin_coeffs8"], cached["gram"],
                     cached["pin_at"], cell, grid.shape, tol, options.solver_maxiter,
                     pins=self._pin_masks(cached, grid), host_gram=cached.get("host_gram"),
-                    stats=host_loop)
+                    stats=host_loop, graphs=_graphs(cached))
                 if host_loop:
                     self.last_stats["host_loop"] = host_loop
             tm.note(f"{options.solver_method} iters={iters} rel_res={resid:.2e}")
@@ -863,7 +884,7 @@ class GridSolver:
                 self._correction_tol(options, rel,
                                      exact_projector=gram.bmat is not None),
                 options.solver_maxiter, pins=self._pin_masks(cached, grid),
-                host_gram=cached.get("host_gram"), stats=host_loop)
+                host_gram=cached.get("host_gram"), stats=host_loop, graphs=_graphs(cached))
         if host_loop:
             self.last_stats["correction_host_loop"] = host_loop
         self.last_stats.setdefault("correction_iters", []).append(int(iters))

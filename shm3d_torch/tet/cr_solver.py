@@ -69,7 +69,7 @@ def _cr_divergence(Y: torch.Tensor, div_tets2: torch.Tensor,
     return torch.einsum("fkj,fkj->f", div_nvec2, g)
 
 
-def _cr_none_solve(b, x0, L, diag, h, tol, maxiter):
+def _cr_none_solve(b, x0, L, diag, h, tol, maxiter, graph=None):
     """Singular CR Poisson solve: L phi = b, constants deflated (b
     pre-deflated by the caller)."""
     def matvec(x):
@@ -83,11 +83,11 @@ def _cr_none_solve(b, x0, L, diag, h, tol, maxiter):
         z = mg(r)
         return z - z.mean()
 
-    return _pcg(matvec, b, x0, precond, tol, maxiter)
+    return _pcg(matvec, b, x0, precond, tol, maxiter, graph)
 
 
 def _cr_multiple_solve(b, x0, L, diag, group_elems, group_ids, group_winv,
-                       n_groups: int, h, tol, maxiter):
+                       n_groups: int, h, tol, maxiter, graph=None):
     """MULTIPLE mode via projected CG: solve P L P u = P div with P the
     componentwise averaging, the mean deflated as well (``b`` is
     pre-projected by the caller)."""
@@ -103,15 +103,15 @@ def _cr_multiple_solve(b, x0, L, diag, group_elems, group_ids, group_winv,
 
     mg = _mg_or_jacobi(h, diag, matvec0=lambda v: pell.apply(L, v))
     precond = lambda r: proj(mg(r))
-    return _pcg(matvec, b, x0, precond, tol, maxiter)
+    return _pcg(matvec, b, x0, precond, tol, maxiter, graph)
 
 
-def _project_solve(bvec, x0, P, p_diag, tol, maxiter, shift=0.0):
+def _project_solve(bvec, x0, P, p_diag, tol, maxiter, shift=0.0, graph=None):
     """(A^T M A + shift I) w = b, SPD, Jacobi-preconditioned."""
     def matvec(x):
         return pell.apply(P, x) + shift * x
 
-    return _pcg(matvec, bvec, x0, lambda r: r / p_diag, tol, maxiter)
+    return _pcg(matvec, bvec, x0, lambda r: r / p_diag, tol, maxiter, graph)
 
 
 # --- projection regularization on sliver-bearing recovery meshes ----------
@@ -248,6 +248,10 @@ class CRPath:
                 lev, cinv, tuple(prepared["amg"][k].sizes), prepared["amg"][k].l0_nnz)
             for k, (lev, cinv) in dev["amg"].items()
         }
+        # the CUDA graphs of the face and projection solves' iterations
+        # (solve.graphs), beside the operators and hierarchies they read;
+        # on a device mesh the row-split solves run eagerly
+        self.graphs = None if device_mesh is not None else {}
         self.last_stats = {}
 
     @classmethod
@@ -402,6 +406,7 @@ class CRPath:
         proj_refine_stats: dict = {}
         H64 = self._H
         zeros = torch.zeros(nf, dtype=self.dtype, device=self.device)
+        graph = None if self.graphs is None else (self.graphs, ("face", mode))
         refined = lambda run, host_op, b64, stats: _refined_solve(
             run, host_op, b64, self.dtype, self.device, options, stats=stats)
         if mode == LevelSetConstraint.ZERO_SET:
@@ -410,7 +415,7 @@ class CRPath:
             host_op = lambda x: m64 * (H64 @ (m64 * x)) + (1.0 - m64) * x
             run = lambda b, tol=tol, maxiter=maxiter: _run_chunked(
                 lambda x0, it: _zeroset_solve(
-                    b, x0, a["L"], a["diag"], a["surf_mask"], h, tol, it),
+                    b, x0, a["L"], a["diag"], a["surf_mask"], h, tol, it, graph),
                 zeros, maxiter, stats=solve_stats)
             phi_f, it1, r1 = refined(run, host_op, b64, refine_stats)
         elif mode == LevelSetConstraint.MULTIPLE:
@@ -434,7 +439,7 @@ class CRPath:
             run = lambda b, tol=tol, maxiter=maxiter: _run_chunked(
                 lambda x0, it: _cr_multiple_solve(
                     b, x0, a["L"], a["diag"], g_elems, g_ids, g_winv, n_groups,
-                    h, tol, it),
+                    h, tol, it, graph),
                 zeros, maxiter, stats=solve_stats)
             phi_f, it1, r1 = refined(run, host_op, b64, refine_stats)
             phi_f = phi_f - self._face_shift64(phi_f, src_face_areas)
@@ -443,7 +448,7 @@ class CRPath:
             host_op = lambda x: (lambda y: y - y.mean())(H64 @ x)
             run = lambda b, tol=tol, maxiter=maxiter: _run_chunked(
                 lambda x0, it: _cr_none_solve(
-                    b, x0, a["L"], a["diag"], h, tol, it),
+                    b, x0, a["L"], a["diag"], h, tol, it, graph),
                 zeros, maxiter, stats=solve_stats)
             phi_f, it1, r1 = refined(run, host_op, b64, refine_stats)
             phi_f = phi_f - self._face_shift64(phi_f, src_face_areas)
@@ -456,7 +461,8 @@ class CRPath:
         zeros_v = torch.zeros(nv, dtype=self.dtype, device=self.device)
         runp = lambda b, tol=tol, maxiter=maxiter: _run_chunked(
             lambda x0, it: _project_solve(
-                b, x0, a["P"], a["p_diag"], tol, it, shift=shift),
+                b, x0, a["P"], a["p_diag"], tol, it, shift=shift,
+                graph=None if self.graphs is None else (self.graphs, "projection")),
             zeros_v, maxiter, stats=proj_stats)
         w, it2, r2 = refined(runp, host_opp, b64p, proj_refine_stats)
         self.last_stats = {"iters": int(it1), "residual": float(r1),

@@ -71,7 +71,7 @@ from .._device import resolve_device, torch_dtype
 from .._inputs import check_inputs
 from ..ops.yukawa import yukawa_field
 from ..parallel import rows, yukawa_field_ring
-from ..solve import amg, ell, krylov, pell
+from ..solve import amg, ell, graphs, krylov, pell
 from ..utils import tree as tree_mod
 from ..utils.timing import PhaseTimer
 
@@ -173,13 +173,16 @@ def _mg_or_jacobi(h, diag, matvec0=None):
     return lambda r: r / diag
 
 
-def _pcg(matvec, b, x0, precond, tol, maxiter):
+def _pcg(matvec, b, x0, precond, tol, maxiter, graph=None):
     """Preconditioned CG stopped relative to ||b|| in the preconditioner's
     norm, with the dtype's stall window; returns (x, iterations, relative
-    residual in that norm)."""
+    residual in that norm).  ``graph``: (dict, key) of the CUDA graph of the
+    iteration (``solve.graphs``), kept beside the operator and hierarchy it
+    reads; on one CUDA device each iteration is one replay of it."""
     rhs_mnorm = math.sqrt(abs(float(torch.dot(b, precond(b)))))
-    res = krylov.cg(matvec, b, x0=x0, precond=precond, tol=tol, maxiter=maxiter,
-                    rhs_mnorm=rhs_mnorm, stall_window=_stall_window(b.dtype))
+    res = krylov.cg_run(matvec, b, x0=x0, precond=precond, tol=tol, maxiter=maxiter,
+                        rhs_mnorm=rhs_mnorm, stall_window=_stall_window(b.dtype),
+                        runner=None if graph is None else graphs.runner(*graph, b))
     return res.x, res.iterations, res.residual / max(rhs_mnorm, torch.finfo(b.dtype).tiny)
 
 
@@ -234,19 +237,20 @@ def _divergence(Y, div_rows, div_tets, div_gvec, n: int) -> torch.Tensor:
 # original variables either way.
 
 
-def _zeroset_solve(b, x0, H, diag, mask, h, tol, maxiter):
+def _zeroset_solve(b, x0, H, diag, mask, h, tol, maxiter, graph=None):
     """Dirichlet solve: x = 0 where ``mask`` is 0, H_II x_I = b_I (the
-    vertex path's source vertices, the CR path's surface faces)."""
+    vertex path's source vertices, the CR path's surface faces).
+    ``graph`` as in ``_pcg``."""
     def matvec(x):
         return mask * pell.apply(H, mask * x) + (1.0 - mask) * x
 
     # the hierarchy is built on the same masked operator -> matvec0 = matvec
     precond = _mg_or_jacobi(h, diag, matvec0=matvec)
-    x, iters, rel = _pcg(matvec, b, x0, precond, tol, maxiter)
+    x, iters, rel = _pcg(matvec, b, x0, precond, tol, maxiter, graph)
     return x * mask, iters, rel
 
 
-def _none_solve(b, x0, H, diag, vnull, h, tol, maxiter):
+def _none_solve(b, x0, H, diag, vnull, h, tol, maxiter, graph=None):
     """Singular Poisson solve in equilibrated variables: H y = b with the
     scaled null direction ``vnull`` (unit sqrt(diag) vector) deflated."""
     defl = lambda v: v - vnull * torch.dot(vnull, v)
@@ -256,11 +260,11 @@ def _none_solve(b, x0, H, diag, vnull, h, tol, maxiter):
         return defl(pell.apply(H, x))
 
     mg = _mg_or_jacobi(h, diag, matvec0=lambda v: pell.apply(H, v))
-    return _pcg(matvec, b, x0, lambda r: defl(mg(r)), tol, maxiter)
+    return _pcg(matvec, b, x0, lambda r: defl(mg(r)), tol, maxiter, graph)
 
 
 def _multiple_solve(b, x0, H, diag, group_elems, group_ids, group_u,
-                    group_uinv, vnull, n_groups: int, h, tol, maxiter):
+                    group_uinv, vnull, n_groups: int, h, tol, maxiter, graph=None):
     """MULTIPLE mode via projected CG in equilibrated variables: solve
     P H P u = P b with P the ``group_u``-weighted per-group projection
     composed with the ``vnull`` deflation (the scaled operator is singular
@@ -279,7 +283,7 @@ def _multiple_solve(b, x0, H, diag, group_elems, group_ids, group_u,
         return proj(pell.apply(H, x))
 
     mg = _mg_or_jacobi(h, diag, matvec0=lambda v: pell.apply(H, v))
-    return _pcg(matvec, b, x0, lambda r: proj(mg(r)), tol, maxiter)
+    return _pcg(matvec, b, x0, lambda r: proj(mg(r)), tol, maxiter, graph)
 
 
 # ---------------------------------------------------------------------------
@@ -728,6 +732,8 @@ class SignedHeatTetSolver:
            later processes skip the rebuild."""
         if "H_ell" in cached:
             return
+        # every vertex graph reads the operators replaced below
+        cached.pop("vertex_graphs", None)
         if cached.get("_vertex_host") is not None:
             cached.update(self._put_vertex(cached.pop("_vertex_host")))
             return
@@ -827,6 +833,11 @@ class SignedHeatTetSolver:
         vs = cached["vscale"]
         div64 = div.cpu().numpy().astype(np.float64)
         zeros = torch.zeros(n, dtype=dtype, device=self.device)
+        # the mode's iteration graph, beside the operator and hierarchy it
+        # reads (dropped by _ensure_vertex_ops when it replaces them); on a
+        # device mesh the row-split solves run eagerly
+        graph = (None if self.mesh is not None
+                 else (cached.setdefault("vertex_graphs", {}), (mode, dtype)))
 
         def scaled_run(solve_of):
             def run(b, tol=tol, maxiter=maxiter):
@@ -846,7 +857,7 @@ class SignedHeatTetSolver:
             b64 = mask64 * -div64
             host_op = lambda x: mask64 * (H64 @ (mask64 * x)) + (1.0 - mask64) * x
             run = scaled_run(lambda bs, x0, t, it: _zeroset_solve(
-                bs, x0, H, diagH, mask, h, t, it))
+                bs, x0, H, diagH, mask, h, t, it, graph))
             phi, iters, res = refined(run, host_op, b64)
             phi = torch.as_tensor(phi, dtype=dtype, device=self.device)
         elif mode == LevelSetConstraint.MULTIPLE:
@@ -875,7 +886,7 @@ class SignedHeatTetSolver:
             host_op = lambda x: proj64(H64 @ x)
             run = scaled_run(lambda bs, x0, t, it: _multiple_solve(
                 bs, x0, H, diagH, g_elems, g_ids, g_u, g_uinv, cached["vnull"],
-                n_groups, h, t, it))
+                n_groups, h, t, it, graph))
             x, iters, res = refined(run, host_op, b64)
             phi = self._shift(torch.as_tensor(x, dtype=dtype, device=self.device),
                               cached)
@@ -884,7 +895,7 @@ class SignedHeatTetSolver:
             b64 = b64 - b64.mean()
             host_op = lambda x: (lambda y: y - y.mean())(H64 @ x)
             run = scaled_run(lambda bs, x0, t, it: _none_solve(
-                bs, x0, H, diagH, cached["vnull"], h, t, it))
+                bs, x0, H, diagH, cached["vnull"], h, t, it, graph))
             phi, iters, res = refined(run, host_op, b64)
             phi = self._shift(torch.as_tensor(phi, dtype=dtype, device=self.device),
                               cached)
