@@ -74,11 +74,11 @@ Run from the repository root:  python3 chip_smoke.py
     of the 256^3 shell launch and the whole coarse launch, timed against its
     SFU bound;
 14. the host-projected tier at 128^3 (max_device_pins=None): one cold and
-    two warm solves, each Gram solve on the host, within 1e-5 of the 128^3
-    reference;
-15. fast integration at 128^3: the device wavefront (every node visited,
-    two solves one phi) and a constant field integrated to its exact linear
-    phi;
+    two warm solves, each Gram solve on the host between the loop's three
+    graphs an iteration, within 1e-5 of the 128^3 reference;
+15. fast integration at 128^3: the device wavefront, one graph a chunk of
+    16 sweeps (every node visited, two solves one phi) and a constant field
+    integrated to its exact linear phi;
 16. the CLI on the card: ``python -m shm3d_torch.cli`` on bunny_dec at
     --h 2 writes phi;
 17. the grid domain on a device mesh of four shards of the one card
@@ -132,22 +132,29 @@ Run from the repository root:  python3 chip_smoke.py
     CR (cold) against the JAX package's float32 numbers; (e) the grid and
     bunny_dec CR on 1 x 4 and 2 x 2 meshes of the card; (f) the CLI with
     ``--dtype float64``;
-21. the Krylov iterations as CUDA graphs (``shm3d_torch/solve/graphs.py``):
-    on the main path at 128^3 (fast and default tier), the 256^3 fast tier,
-    knot_dec CR, knot_dec vertex, the point cloud's NONE mode and MINRES at
-    200 iterations, warm solves on the eager loops and on the graphs in
-    turns (eager, graph, graph, eager) on the same solver, held bit for bit
-    equal (phi, iterations, residuals) with equal K1 and K2 launches, and
-    one profiled solve of each: the host's kernel launch calls and graph
-    launches, the device's kernel events, the device-busy share,
-    mem_peak_mb, and in every Krylov loop of the graphed solve one graph
-    launch an iteration with no kernel launch between them.
+21. the loops as CUDA graphs (``shm3d_torch/solve/graphs.py``): the Krylov
+    iterations on the main path at 128^3 (fast and default tier), the 256^3
+    fast tier, knot_dec CR, knot_dec vertex, the point cloud's NONE mode
+    and MINRES at 200 iterations; the host-projected loop on sphere52k-128
+    (phase 14), sphere52k-128-f64 (phase 20) and the 256^3 default tier's
+    corrections; the wavefront at 128^3.  Warm solves on the eager loops and
+    on the graphs in turns (eager, graph, graph, eager; the 256^3 default
+    tier, 7-9 s a solve, one eager and one graphed turn) on the same solver,
+    held bit for bit equal (phi, iterations, residuals, Gram-solve counts,
+    sweeps) with equal K1 and K2 launches, and one profiled solve of each
+    mode (the 256^3 default tier: the graphed one only): the host's kernel
+    launch calls and graph launches, the device's kernel events, the
+    device-busy share, mem_peak_mb, and in every loop of the graphed solve
+    its graph launches (one a Krylov iteration, three a host-projected
+    iteration, one a chunk of sweeps) with no kernel launch between them;
+    the graphs' pool MB.
 
-Every one-device solve on the card replays its Krylov iterations as CUDA
-graphs: the eager loops (``krylov.cg``, ``krylov.minres``) are replaced by
-guards that fail the run on one device's CUDA vectors, except in phase 21's
-eager turns and the tet domain's row-split mesh solves, which stay eager by
-design (z-slab solves pass).  The earlier phases' readings repeat those
+Every one-device solve on the card replays its Krylov iterations, its
+host-projected loop and its wavefront sweeps as CUDA graphs: the eager loops
+(``krylov.cg``, ``krylov.minres``, ``solvers.grid.hostproj_iteration``,
+``ops.wavefront.sweep_loop``) are replaced by guards that fail the run on one
+device's CUDA vectors, except in phase 21's eager turns and the tet domain's
+row-split mesh solves, which stay eager by design (z-slab solves pass).  The earlier phases' readings repeat those
 taken on the eager loops before the graphs: checked where PERF.md records
 them (the main path's iterations and rel-L2, the face and vertex
 iterations, MINRES's iterations and phibar, the float64 iterations).
@@ -316,7 +323,8 @@ EAGER_F64_GRID = (76, "8.6153e-11")
 EAGER_F64_BUNNY_CR_ITERS, EAGER_F64_KNOT_ITERS = 647, 3245
 # phase 21: the stats a graphed solve repeats bit for bit
 GRAPH_STAT_KEYS = ("iters", "rel_res", "residual", "refine_pass_rels", "refine_rel_res",
-                   "correction_iters", "proj_iters", "proj_residual", "proj_refine_pass_rels")
+                   "correction_iters", "proj_iters", "proj_residual", "proj_refine_pass_rels",
+                   "wavefront_sweeps", "wavefront_visited")
 FP64_LANES = 64                # H100 SXM: FP64 results a clock an SM
 FP64_FLOOR_PER_PAIR = 12       # 3 sub, 3 for r^2, r, the exponent, the weight, 3 sums
 
@@ -347,27 +355,42 @@ def check_no_jax_package() -> None:
     check(not bad, f"no module of the JAX package was imported ({bad[:5]})")
 
 
-# Every one-device solve on the card replays its Krylov iterations as CUDA
-# graphs.  The eager loops run there only where a phase asks for them:
-# phase 21's comparison and the tet domain's row-split mesh solves, which
-# stay eager by design.
+# Every one-device solve on the card replays its Krylov iterations, its
+# host-projected loop and its wavefront sweeps as CUDA graphs.  The eager
+# loops run there only where a phase asks for them: phase 21's comparison
+# and the tet domain's row-split mesh solves, which stay eager by design.
 EAGER_LOOPS = {"allowed": False}
 # phase 21's paths, registered by the phases that drive them first:
-# name -> (solver, geometry, options)
+# name -> (solver, geometry, options, turns); turns: the eager and graphed
+# warm solves in their order (a profiled solve of each mode in them follows)
 GRAPH_PATHS = {}
+TURNS = ("eager", "graph", "graph", "eager")
 
 
-def refuse_eager_loops(krylov, graphs):
-    """``krylov.cg`` and ``krylov.minres`` replaced by guards that fail the
-    run when they get one CUDA device's vectors outside ``eager_allowed``
-    (such a solve must replay its iteration graph); z-slabs pass."""
-    for name in ("cg", "minres"):
-        def guard(matvec, b, *args, _loop=getattr(krylov, name), _name=name, **kwargs):
-            if graphs.one_cuda_vector(b) and not EAGER_LOOPS["allowed"]:
-                check(False, f"a solve on the card ran the eager {_name} loop")
-            return _loop(matvec, b, *args, **kwargs)
+def refuse_eager_loops(graphs):
+    """The eager loops replaced by guards that fail the run when they get
+    one CUDA device's vectors outside ``eager_allowed`` (such a solve must
+    replay its graphs): ``krylov.cg`` and ``krylov.minres``, the grid's
+    host-projected iteration (``solvers.grid.hostproj_iteration``) and the
+    wavefront's sweep loop (``ops.wavefront.sweep_loop``); z-slabs pass."""
+    from shm3d_torch.ops import wavefront
+    from shm3d_torch.solve import krylov
+    from shm3d_torch.solvers import grid
 
-        setattr(krylov, name, guard)
+    def guard(mod, name, vector):
+        loop = getattr(mod, name)
+
+        def run(*args, **kwargs):
+            if graphs.one_cuda_vector(vector(*args, **kwargs)) and not EAGER_LOOPS["allowed"]:
+                check(False, f"a solve on the card ran the eager loop {mod.__name__}.{name}")
+            return loop(*args, **kwargs)
+
+        setattr(mod, name, run)
+
+    guard(krylov, "cg", lambda matvec, b, *args, **kwargs: b)
+    guard(krylov, "minres", lambda matvec, b, *args, **kwargs: b)
+    guard(grid, "hostproj_iteration", lambda s, *args: s["u"])
+    guard(wavefront, "sweep_loop", lambda phi, *args: phi)
 
 
 @contextlib.contextmanager
@@ -381,17 +404,21 @@ def eager_allowed():
 
 @contextlib.contextmanager
 def eager_loops():
-    """One-device solves on the eager loops (``graphs.runner`` gives no
-    graph), for phase 21's comparison."""
+    """One-device solves on the eager loops (``graphs.runner``,
+    ``hostproj_runner`` and ``wavefront_runner`` give no graph), for phase
+    21's comparison."""
     from shm3d_torch.solve import graphs
 
-    saved = graphs.runner
-    graphs.runner = lambda cache, key, b: None
+    names = ("runner", "hostproj_runner", "wavefront_runner")
+    saved = [getattr(graphs, n) for n in names]
+    for n in names:
+        setattr(graphs, n, lambda cache, key, b: None)
     try:
         with eager_allowed():
             yield
     finally:
-        graphs.runner = saved
+        for n, f in zip(names, saved):
+            setattr(graphs, n, f)
 
 
 def smi_query(field: str) -> str:
@@ -729,7 +756,7 @@ def tet_phase(smi, dev, ceiling):
     check(res.mesh.n_faces == KNOT_FACES, "conforming mesh face count")
     check(all(r["stats"]["iters"] == EAGER_FACE_ITERS for r in runs),
           f"the face solves repeat the eager loops' {EAGER_FACE_ITERS} iterations")
-    GRAPH_PATHS["knot_dec CR"] = (solver, geom, opts)
+    GRAPH_PATHS["knot_dec CR"] = (solver, geom, opts, TURNS)
 
     phi = res.phi
     check(phi.shape == (KNOT_VERTICES,), "phi shape")
@@ -937,7 +964,7 @@ def vertex_phase(smi, dev):
     check(all(r["stats"]["residual"] <= VERTEX_RESIDUAL_MAX for r in runs), "vertex residual")
     check(all(r["stats"]["iters"] == EAGER_VERTEX_ITERS for r in runs),
           f"the vertex solves repeat the eager loops' {EAGER_VERTEX_ITERS} iterations")
-    GRAPH_PATHS["knot_dec vertex"] = (solver, geom, opts)
+    GRAPH_PATHS["knot_dec vertex"] = (solver, geom, opts, TURNS)
     check_phi_bands(res, JAX_VERTEX, "vertex path")
 
     # the divergence twice on the solve's own field
@@ -1038,7 +1065,7 @@ def cloud_phase(smi, dev):
     check(all(r["stats"]["residual"] <= VERTEX_RESIDUAL_MAX for r in runs),
           "point-cloud residual")
     check_phi_bands(res, JAX_CLOUD, "point cloud")
-    GRAPH_PATHS["knot_dec point cloud NONE"] = (solver, cloud, opts)
+    GRAPH_PATHS["knot_dec point cloud NONE"] = (solver, cloud, opts, TURNS)
     cached = next(iter(solver._impl._cache.values()))
     k1 = k1_at(yk, cached, opts, smi, "point-cloud barycenters")
     k1["launches"] = k1_launches
@@ -1717,7 +1744,11 @@ def grid256_phase(smi, dev, sfu, geom, analytic_128):
     opts = SignedHeatOptions(dtype="float32", h_coef=H_COEF_256, refine_steps=0,
                              solver_maxiter=2000, step1_method="auto", disk_cache=False)
     solver = SignedHeatSolver("grid", device=dev)
-    GRAPH_PATHS["sphere52k-256 fast tier"] = (solver, geom, opts)
+    GRAPH_PATHS["sphere52k-256 fast tier"] = (solver, geom, opts, TURNS)
+    # the default tier's warm solves take 7-9 s each: phase 21 takes one
+    # eager and one graphed turn and profiles the graphed solve only
+    GRAPH_PATHS["sphere52k-256 default tier"] = (solver, geom, opts.with_(refine_steps=1),
+                                                 ("eager", "graph"))
     yk.KERNEL_LAUNCHES = 0
     fast, res_fast = timed_solves(solver, geom, opts, 4, yk, pell)
     # the default tier's warm solves take 8-9 s each: one cold and one warm
@@ -1807,6 +1838,7 @@ def hostproj_phase(smi, dev, geom, phi_ref_128):
                              solver_maxiter=2000, step1_method="auto", disk_cache=False,
                              max_device_pins=None)
     solver = SignedHeatSolver("grid", device=dev)
+    GRAPH_PATHS["sphere52k-128 host-projected"] = (solver, geom, opts, TURNS)
     yk.KERNEL_LAUNCHES = 0
     runs, res = timed_solves(solver, geom, opts, 3, yk, pell)
     launches = yk.KERNEL_LAUNCHES
@@ -1842,6 +1874,8 @@ def wavefront_phase(smi, dev, solver, geom, opts):
     from shm3d_torch.ops.wavefront import greedy_integrate_wavefront
     from shm3d_torch.solve import pell
 
+    GRAPH_PATHS["sphere52k-128 wavefront"] = (solver, geom, opts.with_(fast_integration=True),
+                                              TURNS)
     yk.KERNEL_LAUNCHES = 0
     runs, res = timed_solves(solver, geom, opts.with_(fast_integration=True), 2, yk, pell)
     launches = yk.KERNEL_LAUNCHES
@@ -1864,15 +1898,19 @@ def wavefront_phase(smi, dev, solver, geom, opts):
     d = np.array([1.0, 2.0, -0.5])
     d /= np.linalg.norm(d)
     Y = torch.as_tensor(np.tile(d, (g.n ** 3, 1)), dtype=torch.float32, device=dev)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    phi, sweeps, _ = greedy_integrate_wavefront(Y, float(g.cell_size), g.shape)
-    torch.cuda.synchronize()
-    t = time.perf_counter() - t0
+    chunk_graphs = {}
+    for _ in range(2):  # the first call captures its chunk graphs
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        phi, sweeps, _ = greedy_integrate_wavefront(Y, float(g.cell_size), g.shape,
+                                                    cache=chunk_graphs)
+        torch.cuda.synchronize()
+        t = time.perf_counter() - t0
     pos = _positions_of(np.arange(g.n ** 3, dtype=np.int64), g).astype(np.float64)
     exact = (pos - pos[0]) @ d
     rel = float(np.linalg.norm(phi.cpu().numpy() - exact) / np.linalg.norm(exact))
-    print(f"  constant field: {sweeps} sweeps in {t:.4f} s, rel-L2 against the exact linear "
+    print(f"  constant field: {sweeps} sweeps in {t:.4f} s (the second call; the first "
+          f"captured its chunk graphs), rel-L2 against the exact linear "
           f"phi {rel:.3e} (limit 1e-5; {smi})")
     check(rel <= 1e-5, "the wavefront is exact on a constant field")
     return launches
@@ -2192,7 +2230,7 @@ def minres_phase(smi, dev, solver, geom, opts, main):
 
     # --- (c) 200 iterations: one phi twice, and four shards of the card
     o200 = kkt.with_(solver_maxiter=200)
-    GRAPH_PATHS["sphere52k-128 MINRES, 200 iterations"] = (solver, geom, o200)
+    GRAPH_PATHS["sphere52k-128 MINRES, 200 iterations"] = (solver, geom, o200, TURNS)
     (ra, _, sta), (rb, _, _) = one(solver, o200), one(solver, o200)
     with no_plain_yukawa(yk):
         profile_solve("20-iteration MINRES solve",
@@ -2409,6 +2447,7 @@ def f64_phase(smi, dev, geom, main):
     # --- (b) sphere52k-128 in float64: 1 cold + 2 warm
     o64 = SignedHeatOptions(dtype="float64", h_coef=H_COEF, refine_steps=0, disk_cache=False)
     solver = SignedHeatSolver("grid", device=dev)
+    GRAPH_PATHS["sphere52k-128-f64 host-projected"] = (solver, geom, o64, TURNS)
     runs, res = on_card(solver, geom, o64, 3)
     st = runs[-1]["stats"]
     analytic = analytic_rel(res)
@@ -2628,15 +2667,35 @@ def f64_phase(smi, dev, geom, main):
     entry.update(launches=sum(v["launches"] for v in per_path.values()), per_path=per_path)
     return entry
 
-def krylov_loops(st) -> list:
-    """The iterations of each Krylov loop a solve ran, in order, from its
-    stats: the tet paths' chunks (face or vertex solves, then the CR
-    projection's), the grid's primary solve and its correction solves."""
+def graph_runs(st) -> list:
+    """The graph launches each loop of a solve makes on the graphs, in
+    order, from its stats: one an iteration of a Krylov loop (the tet
+    paths' chunks: face or vertex solves, then the CR projection's; the
+    grid's projected CG and MINRES), three an iteration of the grid's
+    host-projected loop (the host-projected tier's solves, the subsampled
+    tier's corrections), one a chunk of wavefront sweeps."""
+    from shm3d_torch.ops.wavefront import CHECK_EVERY
+
+    if "wavefront_sweeps" in st:
+        return [-(-st["wavefront_sweeps"] // CHECK_EVERY)]
     if "chunks" in st:
         loops = [c["iters"] for c in st["chunks"] + st.get("proj_chunks", [])]
     else:
-        loops = [st["iters"]] + list(st.get("correction_iters", []))
+        hostproj = st["tier"] == "host-projected"
+        primary = 3 if hostproj and st["step3_path"] == "projected-mg-pcg" else 1
+        correction = 3 if hostproj or st["tier"] == "subsampled" else 1
+        loops = [primary * st["iters"]] + [correction * k
+                                          for k in st.get("correction_iters", [])]
     return [k for k in loops if k > 0]
+
+
+def graph_stats(st) -> dict:
+    """What a graphed solve repeats bit for bit: GRAPH_STAT_KEYS and the
+    host-projected loops' Gram-solve counts."""
+    out = {k: st.get(k) for k in GRAPH_STAT_KEYS}
+    for k in ("host_loop", "correction_host_loop"):
+        out[k] = (st.get(k) or {}).get("gram_solves")
+    return out
 
 
 def launch_profile(fn) -> dict:
@@ -2681,22 +2740,26 @@ def launch_profile(fn) -> dict:
 
 
 def graph_phase(smi):
-    """Phase 21: each path the Krylov iteration graphs serve, warm, against
-    the eager loops on the same solver and discretization: solves in turns
-    (eager, graph, graph, eager) held bit for bit equal (phi, iterations,
-    residuals) with equal K1 and K2 launches, timed; then one profiled solve
-    of each: host launch calls, device kernel events, device-busy share,
-    mem_peak_mb, and every Krylov loop of the graphed solve one graph launch
-    an iteration with no kernel launch between them."""
+    """Phase 21: each path the graphs serve (the Krylov iterations, the
+    host-projected loop, the wavefront), warm, against the eager loops on
+    the same solver and discretization: solves in turns (eager, graph,
+    graph, eager; the 256^3 default tier, 7-9 s a solve, one eager and one
+    graphed) held bit for bit equal (phi, iterations, residuals, Gram-solve
+    counts, sweeps) with equal K1 and K2 launches, timed; then one profiled
+    solve of each mode (the 256^3 default tier: the graphed one): host
+    launch calls, device kernel events, device-busy share, mem_peak_mb, and
+    in every loop of the graphed solve its graph launches (one a Krylov
+    iteration, three a host-projected iteration, one a chunk of sweeps)
+    with no kernel launch between them."""
     from shm3d_torch.ops import yukawa as yk
     from shm3d_torch.solve import pell
 
     t_phase = time.perf_counter()
     summary = {}
     print(f"graphs against the eager loops ({smi})")
-    for name, (solver, geom, opts) in GRAPH_PATHS.items():
+    for name, (solver, geom, opts, turns) in GRAPH_PATHS.items():
         runs = {"eager": [], "graph": []}
-        for mode in ("eager", "graph", "graph", "eager"):
+        for mode in turns:
             with eager_loops() if mode == "eager" else contextlib.nullcontext():
                 k1, k2 = yk.KERNEL_LAUNCHES, pell.KERNEL_LAUNCHES
                 t0 = time.perf_counter()
@@ -2707,26 +2770,30 @@ def graph_phase(smi):
                     s=time.perf_counter() - t0, k1=yk.KERNEL_LAUNCHES - k1,
                     k2=pell.KERNEL_LAUNCHES - k2, mem=st["mem_peak_mb"],
                     reserved=torch.cuda.memory_reserved() / 1e6,
-                    stats={k: st.get(k) for k in GRAPH_STAT_KEYS}, loops=krylov_loops(st),
+                    stats=graph_stats(st), loops=graph_runs(st),
                     phi=hashlib.sha1(np.ascontiguousarray(res.phi).tobytes()).hexdigest()))
+        profiled = ("eager", "graph") if turns.count("eager") > 1 else ("graph",)
         prof = {}
-        for mode in ("eager", "graph"):
+        for mode in profiled:
             with eager_loops() if mode == "eager" else contextlib.nullcontext():
                 prof[mode] = launch_profile(lambda: solver.compute_distance(geom, opts))
-                prof[mode]["loops"] = krylov_loops(solver.last_stats)
-        e, g = runs["eager"], runs["graph"]
-        for mode, rr in runs.items():  # kernel time over the unprofiled warm median
+                prof[mode]["loops"] = graph_runs(solver.last_stats)
+            # kernel time over the unprofiled warm median
             prof[mode]["busy"] = prof[mode]["kernel_ms"] / 1e3 / statistics.median(
-                r["s"] for r in rr)
+                r["s"] for r in runs[mode])
+        e, g = runs["eager"], runs["graph"]
         same = len({r["phi"] for r in e + g}) == 1 and all(
             r["stats"] == e[0]["stats"] for r in e + g)
         counts = {(r["k1"], r["k2"]) for r in e + g}
         te, tg = statistics.median(r["s"] for r in e), statistics.median(r["s"] for r in g)
         print(f"  {name}: eager {[round(r['s'], 4) for r in e]} s, graph "
               f"{[round(r['s'], 4) for r in g]} s (median {te:.4f} against {tg:.4f} s, "
-              f"{te / tg:.2f}x); bit for bit {same} (iters {e[0]['stats']['iters']}, Krylov "
-              f"loops {e[0]['loops']}); K1, K2 launches a solve {sorted(counts)}")
-        for mode in ("eager", "graph"):
+              f"{te / tg:.2f}x); bit for bit {same} (iters {e[0]['stats']['iters']}, graph "
+              f"launches a loop {g[0]['loops']}, Gram solves "
+              f"{e[0]['stats']['host_loop']} + {e[0]['stats']['correction_host_loop']}, "
+              f"sweeps {e[0]['stats']['wavefront_sweeps']}); K1, K2 launches a solve "
+              f"{sorted(counts)}")
+        for mode in profiled:
             p, r = prof[mode], runs[mode][0]
             print(f"    {mode}: {p['launch_calls']} kernel launch calls and {p['graph_calls']} "
                   f"graph launches from the host, {p['kernels']} device kernel events, "
@@ -2734,22 +2801,24 @@ def graph_phase(smi):
                   f"warm median; {p['wall_ms']:.1f} ms under the profiler); runs of graph "
                   f"launches {p['graph_runs']}; "
                   f"mem_peak_mb {r['mem']:.1f}, reserved {r['reserved']:.1f} MB")
-        check(same, f"{name}: the graphed solves repeat the eager loop's phi, iterations "
-              f"and residuals bit for bit")
+        check(same, f"{name}: the graphed solves repeat the eager loop's phi, iterations, "
+              f"residuals, Gram solves and sweeps bit for bit")
         check(len(counts) == 1, f"{name}: equal K1 and K2 launches under both")
-        check(prof["eager"]["graph_calls"] == 0 and prof["eager"]["launch_calls"] > 0,
-              f"{name}: the eager solve launched kernels one at a time")
+        if "eager" in prof:
+            check(prof["eager"]["graph_calls"] == 0 and prof["eager"]["launch_calls"] > 0,
+                  f"{name}: the eager solve launched kernels one at a time")
         check(sorted(prof["graph"]["graph_runs"]) == sorted(prof["graph"]["loops"])
               and prof["graph"]["graph_calls"] == sum(prof["graph"]["loops"]),
-              f"{name}: every Krylov loop took one graph launch an iteration and no kernel "
-              f"launch between them")
+              f"{name}: every loop took its graph launches (one a Krylov iteration, three a "
+              f"host-projected iteration, one a chunk of sweeps) and no kernel launch "
+              f"between them")
         summary[name] = dict(
             eager_s=[r["s"] for r in e], graph_s=[r["s"] for r in g],
-            iters=e[0]["stats"]["iters"], loops=e[0]["loops"],
-            launch_calls=(prof["eager"]["launch_calls"], prof["graph"]["launch_calls"]),
+            iters=e[0]["stats"]["iters"], graph_launches=g[0]["loops"],
+            launch_calls={m: prof[m]["launch_calls"] for m in profiled},
             graph_calls=prof["graph"]["graph_calls"],
-            kernels=(prof["eager"]["kernels"], prof["graph"]["kernels"]),
-            busy=(prof["eager"]["busy"], prof["graph"]["busy"]),
+            kernels={m: prof[m]["kernels"] for m in profiled},
+            busy={m: prof[m]["busy"] for m in profiled},
             mem_peak_mb=(e[0]["mem"], g[0]["mem"]))
     pools = graph_pools()
     print(f"  the graphs' private memory pools (reserved MB, from the allocator's snapshot): "
@@ -2775,7 +2844,7 @@ def graph_pools():
         pool = tuple(seg["segment_pool_id"])
         by_pool[pool] = by_pool.get(pool, 0) + seg["total_size"]
     out, seen = {}, set()
-    for name, (solver, _, _) in GRAPH_PATHS.items():
+    for name, (solver, *_) in GRAPH_PATHS.items():
         for cached in solver._impl._cache.values():
             caches = [cached.get("graphs"), cached.get("vertex_graphs"),
                       getattr(cached.get("cr_path"), "graphs", None)]
@@ -2801,7 +2870,7 @@ def main() -> int:
     from shm3d_torch.ops import yukawa as yk
     from shm3d_torch.ops import yukawa_skeleton as ys
     from shm3d_torch.ops.farfield import DeviceShellPlan, _positions_of
-    from shm3d_torch.solve import ell, graphs, krylov, pell
+    from shm3d_torch.solve import ell, graphs, pell
 
     check(os.path.dirname(os.path.abspath(shm3d_torch.__file__)) ==
           os.path.join(REPO, "shm3d_torch"), "shm3d_torch imported from this checkout")
@@ -2816,7 +2885,7 @@ def main() -> int:
     dev = resolve_device("cuda")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python "
           f"{sys.version.split()[0]} device {torch.cuda.get_device_name(0)}")
-    refuse_eager_loops(krylov, graphs)
+    refuse_eager_loops(graphs)
 
     # --- build ---------------------------------------------------------
     t0 = time.perf_counter()
@@ -2888,8 +2957,8 @@ def main() -> int:
     check((stats["iters"], f"{rel:.6e}") == EAGER_MAIN,
           f"the main path repeats the eager loops' {EAGER_MAIN[0]} iterations and rel-L2 {EAGER_MAIN[1]}")
     check_no_jax_package()
-    GRAPH_PATHS["sphere52k-128 fast tier"] = (solver, geom, opts)
-    GRAPH_PATHS["sphere52k-128 default tier"] = (solver, geom, opts.with_(refine_steps=1))
+    GRAPH_PATHS["sphere52k-128 fast tier"] = (solver, geom, opts, TURNS)
+    GRAPH_PATHS["sphere52k-128 default tier"] = (solver, geom, opts.with_(refine_steps=1), TURNS)
 
     # --- the kernel at the main path's shapes --------------------------------
     plan = next(v for v in cached.values() if isinstance(v, DeviceShellPlan))

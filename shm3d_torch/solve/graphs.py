@@ -1,7 +1,9 @@
-"""CUDA graphs of the Krylov iterations: the port's counterpart of the
-jitted Krylov chunks of shm3d (``_pinned_pcg_chunk``, ``_kkt_minres_chunk``
-in shm3d.solvers.grid; the tet ``_zeroset_chunk``, ``_none_chunk`` and
-``_multiple_chunk``), where a chunk of iterations is one device program.
+"""CUDA graphs of the solvers' loops: the port's counterpart of the jitted
+Krylov chunks of shm3d (``_pinned_pcg_chunk``, ``_kkt_minres_chunk`` in
+shm3d.solvers.grid; the tet ``_zeroset_chunk``, ``_none_chunk`` and
+``_multiple_chunk``), where a chunk of iterations is one device program, of
+the host-projected loop's three device programs (``_hp_step1/2/3``) and of
+the wavefront's ``_sweep_chunk``.
 
 Eager PyTorch makes one launch per op: ~1,300 an iteration of the grid's
 projected MG-PCG at 128^3, ~430 of the tet face CG, 348 of the vertex CG.
@@ -17,11 +19,18 @@ copies x out.
   (``Shards``); for one CUDA tensor or a pair of them (the grid's
   ``KKTPair``), a ``Cached`` that captures the graph on first use and keeps
   it in ``cache[key]``, beside the discretization whose tensors it reads.
+  Its siblings ``hostproj_runner`` (the grid's host-projected loop: three
+  graphs an iteration, the host's two Gram solves between them) and
+  ``wavefront_runner`` (the greedy wavefront: one graph a chunk of sweeps)
+  follow the same rule for one tensor.
 - ``IterationGraph``: warm-up of the bodies on scratch copies of the state
   on a side stream (under ``torch.cuda.set_sync_debug_mode("error")``, so a
   hidden host sync raises there and names its op), capture of each body,
   one replay a step.  A capture error raises; nothing falls back to the
-  eager loop.
+  eager loop.  A loop with host work between its bodies (a segmented
+  stepper) names the state buffers the host exchanges (``exchange``): each
+  gets a pinned host mirror, read (``read``) and written (``write``) with
+  plain copies between replays, so the graphs' addresses never change.
 - ``note_launch`` / ``LaunchCounts``: a kernel wrapper called while a body
   is captured launches nothing; it notes its launch, and every replay adds
   the noted launches to the wrapper's counter (``pell.KERNEL_LAUNCHES``,
@@ -101,17 +110,21 @@ def _device(v) -> torch.device:
 
 
 class IterationGraph:
-    """A Krylov loop's iteration bodies, each captured as one CUDA graph
-    over the static state buffers ``state``, replayed once a step.
+    """A loop's bodies, each captured as one CUDA graph over the static
+    state buffers ``state``, replayed once a step.
 
     ``make_bodies(state)`` returns the loop's bodies (CG one; MINRES two:
-    its first iteration and the rest), each reading and writing ``state``
-    in place.  Their closures are kept: they hold every tensor the graphs
-    read (operators, hierarchies, masks)."""
+    its first iteration and the rest; the host-projected loop three
+    segments; the wavefront a full and a last chunk), each reading and
+    writing ``state`` in place.  Their closures are kept: they hold every
+    tensor the graphs read (operators, hierarchies, masks).  ``exchange``:
+    the state buffers the host reads or writes between replays."""
 
-    def __init__(self, init: dict, make_bodies: Callable):
-        device = _device(init["x"])
+    def __init__(self, init: dict, make_bodies: Callable, exchange=()):
+        device = _device(next(iter(init.values())))
         self.state = {k: v.clone() for k, v in init.items()}
+        self.host = {k: torch.empty(self.state[k].shape, dtype=self.state[k].dtype,
+                                    pin_memory=True) for k in exchange}
         self.bodies = make_bodies(self.state)
         current = torch.cuda.current_stream(device)
         stream = torch.cuda.Stream(device)
@@ -126,9 +139,9 @@ class IterationGraph:
                 for body in make_bodies(scratch):
                     body()
         except Exception as e:
-            raise RuntimeError(f"a Krylov iteration body failed at {op.last} in its "
-                               f"warm-up before CUDA graph capture (a host sync raises "
-                               f"here): {e}") from e
+            raise RuntimeError(f"a loop body failed at {op.last} in its warm-up "
+                               f"before CUDA graph capture (a host sync raises here): "
+                               f"{e}") from e
         current.wait_stream(stream)
         del scratch
         self.graphs, self.counts = [], []
@@ -140,8 +153,8 @@ class IterationGraph:
                 with counts.recording(), torch.cuda.graph(graph, pool=pool, stream=stream), op:
                     body()
             except Exception as e:
-                raise RuntimeError(f"CUDA graph capture of a Krylov iteration failed "
-                                   f"at {op.last}: {e}") from e
+                raise RuntimeError(f"CUDA graph capture of a loop body failed at "
+                                   f"{op.last}: {e}") from e
             pool = graph.pool()  # the bodies run one at a time: one pool
             self.graphs.append(graph)
             self.counts.append(counts)
@@ -154,6 +167,19 @@ class IterationGraph:
         self.graphs[i].replay()
         self.counts[i].add()
 
+    def read(self, name: str) -> torch.Tensor:
+        """The state buffer ``name`` as the replays so far left it, in its
+        pinned host mirror (a copy that waits for them; valid until the
+        next ``read`` of ``name``)."""
+        return self.host[name].copy_(self.state[name])
+
+    def write(self, name: str, value: torch.Tensor) -> None:
+        """Host ``value`` into the state buffer ``name`` through its pinned
+        mirror, ordered before the next replay on the stream.  The mirror is
+        free again once a ``read`` has waited for the device."""
+        self.host[name].copy_(value)
+        self.state[name].copy_(self.host[name], non_blocking=True)
+
 
 class Cached:
     """A runner that keeps its stepper (``kind``: ``IterationGraph``, or a
@@ -163,10 +189,10 @@ class Cached:
     def __init__(self, cache: dict, key, kind=IterationGraph):
         self.cache, self.key, self.kind = cache, key, kind
 
-    def __call__(self, init: dict, make_bodies: Callable):
+    def __call__(self, init: dict, make_bodies: Callable, **kw):
         stepper = self.cache.get(self.key)
         if stepper is None:
-            stepper = self.kind(init, make_bodies)
+            stepper = self.kind(init, make_bodies, **kw)
             self.cache[self.key] = stepper
         stepper.load(init)
         return stepper
@@ -184,6 +210,25 @@ def runner(cache: Optional[dict], key, b) -> Optional[Cached]:
     """How a Krylov loop over ``b`` runs its iterations: None, the eager
     loop (CPU tensors, z-slabs, or no ``cache``), or for one CUDA tensor or
     a pair of them, the graph kept in ``cache[key]``."""
+    return _cached(cache, key, b)
+
+
+def hostproj_runner(cache: Optional[dict], key, b) -> Optional[Cached]:
+    """How the grid's host-projected loop over ``b`` runs its iterations:
+    None, the eager loop (CPU tensors, z-slabs, or no ``cache``), or for one
+    CUDA tensor its three segment graphs kept in ``cache[key]``, with the
+    host's Gram solves between them through the exchange buffers."""
+    return _cached(cache, key, b)
+
+
+def wavefront_runner(cache: Optional[dict], key, Y) -> Optional[Cached]:
+    """How the greedy wavefront over the field ``Y`` runs its sweeps: None,
+    the eager loop (CPU tensors or no ``cache``), or for one CUDA tensor one
+    replay of the chunk graph kept in ``cache[key]`` a chunk of sweeps."""
+    return _cached(cache, key, Y)
+
+
+def _cached(cache: Optional[dict], key, b) -> Optional[Cached]:
     if cache is None or not one_cuda_vector(b):
         return None
     return Cached(cache, key)

@@ -174,10 +174,11 @@ def _solve_pinned(b, nodes8, coeffs8, gram, at, cell_size: float, shape, tol: fl
     with neither factor takes the host-projected loop (``host_gram``: the
     host factor of these rows; ``stats`` its counters).  ``graphs``: the
     discretization's dict of iteration graphs (``solve.graphs``); on one
-    CUDA device each iteration is one replay of the graph kept there."""
+    CUDA device each iteration is one replay of the graph kept there (three
+    on the host-projected loop)."""
     if gram.bmat is None and gram.tmat is None:
         return _solve_pinned_hostproj(b, nodes8, coeffs8, at, host_gram, cell_size,
-                                      shape, tol, maxiter, stats)
+                                      shape, tol, maxiter, stats, graphs)
     N = b.shape[0]
     proj = projection.make_projector(nodes8, coeffs8, gram, N, at)
     mg = multigrid.make_node_preconditioner(shape, cell_size, pins=pins)
@@ -286,14 +287,19 @@ HOSTPROJ_STALL_CHECKS = 6
 
 
 def _solve_pinned_hostproj(b, nodes8, coeffs8, at, host_gram, cell_size: float, shape,
-                           tol: float, maxiter: int, stats=None):
+                           tol: float, maxiter: int, stats=None, graphs=None):
     """Projected MG-PCG with the exact float64 projection on the host
     (shm3d's ``_solve_pinned_hostproj``): the node-space matvec, V-cycle
     (without pin masks), A and A^T run on the device, and each of the two
     projections of an iteration sends an (m,) vector to the host splu solve
     of A A^T and back.  Returns (u, iterations, relative preconditioned
     residual) with u in ker(A).  ``stats`` (a dict) accumulates the Gram
-    solves, their host seconds and the loop's seconds."""
+    solves, their host seconds and the loop's seconds.  ``graphs`` as in
+    ``_solve_pinned``: on one CUDA device an iteration is three graph
+    replays (``_hostproj_segments``, shm3d's ``_hp_step1/2/3``) with the
+    two Gram solves between them; the graph reads every row's tables (the
+    only tables this loop is given), so the primary and correction solves
+    of a discretization share it."""
     _, lu = host_gram
     N = b.shape[0]
     mg = multigrid.make_node_preconditioner(shape, cell_size)
@@ -302,48 +308,122 @@ def _solve_pinned_hostproj(b, nodes8, coeffs8, at, host_gram, cell_size: float, 
         stats.setdefault(k, 0)
     t_loop = time.perf_counter()
 
-    def proj(v):
-        a = projection.a_apply(v, nodes8, coeffs8).cpu().numpy().astype(np.float64)
+    def gram(a: np.ndarray) -> np.ndarray:
         t0 = time.perf_counter()
         z = lu.solve(a)
         stats["gram_solve_s"] += time.perf_counter() - t0
         stats["gram_solves"] += 1
-        return v - projection.at_apply(torch.as_tensor(z, device=v.device).to(v.dtype), at, N)
+        return z
+
+    def a_of(v):
+        return projection.a_apply(v, nodes8, coeffs8)
+
+    def at_of(z):
+        return projection.at_apply(z, at, N)
+
+    def proj(v):
+        z = gram(a_of(v).cpu().numpy().astype(np.float64))
+        return v - at_of(torch.as_tensor(z, device=v.device).to(v.dtype))
 
     def hmatvec(u):
         return -_lap(u, cell_size, shape)
 
     # u = 0, so the first residual is P b and its preconditioned image
-    u = krylov.zeros_like(b)
     r = proj(b)
     z = proj(mg(r))
     rz = krylov.dot(r, z)
     bnorm = math.sqrt(abs(float(rz)))
     threshold = tol * max(bnorm, float(np.finfo(np.float32).tiny))
-    p = z
+    s = dict(u=krylov.zeros_like(b), r=r, p=z, rz=rz)
+    run = graph_mod.hostproj_runner(graphs, ("host-projected", "all rows", shape, b.dtype), b)
+    if run is None:
+        def iterate():
+            hostproj_iteration(s, hmatvec, mg, proj)
+    else:
+        m = coeffs8.shape[0]
+        init = dict(s, Hp=torch.zeros_like(b), Mr=torch.zeros_like(b),
+                    a1=b.new_zeros(m), a2=b.new_zeros(m),
+                    z1=b.new_zeros(m, dtype=torch.float64),
+                    z2=b.new_zeros(m, dtype=torch.float64))
+        stepper = run(init, lambda st: _hostproj_segments(st, hmatvec, mg, a_of, at_of),
+                      exchange=("a1", "a2", "z1", "z2"))
+        s = stepper.state
+
+        def iterate():
+            stepper.step(0)
+            stepper.write("z1", torch.from_numpy(
+                gram(stepper.read("a1").numpy().astype(np.float64))))
+            stepper.step(1)
+            stepper.write("z2", torch.from_numpy(
+                gram(stepper.read("a2").numpy().astype(np.float64))))
+            stepper.step(2)
+
     best = resid = bnorm
     since = k = 0
     while resid > threshold and k < maxiter and since < HOSTPROJ_STALL_CHECKS:
         for _ in range(min(HOSTPROJ_CHECK_EVERY, maxiter - k)):
-            Ap = proj(hmatvec(p))
-            pAp = krylov.dot(p, Ap)
-            # 0/0 after convergence inside a batch (residuals are read only
-            # every HOSTPROJ_CHECK_EVERY iterations)
-            alpha = torch.where(pAp != 0, rz / pAp, torch.zeros_like(pAp))
-            u = u + alpha * p
-            r = r - alpha * Ap
-            z = proj(mg(r))
-            rz_new = krylov.dot(r, z)
-            p = z + torch.where(rz != 0, rz_new / rz, torch.zeros_like(rz)) * p
-            rz = rz_new
+            iterate()
             k += 1
-        resid = math.sqrt(abs(float(rz)))
+        resid = math.sqrt(abs(float(s["rz"])))
         if resid < 0.98 * best:
             best, since = resid, 0
         else:
             since += 1
     stats["loop_s"] += time.perf_counter() - t_loop
+    u = s["u"] if run is None else s["u"].clone()
     return u, k, resid / max(bnorm, float(np.finfo(np.float64).tiny))
+
+
+def hostproj_iteration(s: dict, hmatvec, mg, proj) -> None:
+    """One iteration of the host-projected loop, eager, on the state ``s``
+    (u, r, p, rz): ``proj`` makes its host Gram solve inside."""
+    Ap = proj(hmatvec(s["p"]))
+    pAp = krylov.dot(s["p"], Ap)
+    # 0/0 after convergence inside a batch (residuals are read only every
+    # HOSTPROJ_CHECK_EVERY iterations)
+    alpha = torch.where(pAp != 0, s["rz"] / pAp, torch.zeros_like(pAp))
+    s["u"] = s["u"] + alpha * s["p"]
+    s["r"] = s["r"] - alpha * Ap
+    z = proj(mg(s["r"]))
+    rz_new = krylov.dot(s["r"], z)
+    s["p"] = z + torch.where(s["rz"] != 0, rz_new / s["rz"], torch.zeros_like(s["rz"])) * s["p"]
+    s["rz"] = rz_new
+
+
+def _hostproj_segments(s: dict, hmatvec, mg, a_of, at_of):
+    """``hostproj_iteration`` as three in-place bodies on the state ``s``
+    (shm3d's ``_hp_step1/2/3``), its ops in their order, each ending in
+    ``copy_`` into the state: (1) H p and A (H p) into ``a1``; the host
+    puts the Gram solve z1 into ``z1`` (float64); (2) the CG step and the
+    V-cycle of r, A (M r) into ``a2``; the host puts z2 into ``z2``; (3) the
+    new direction.  The Gram solutions are cast to the compute dtype on the
+    device, as the eager loop casts them."""
+
+    def step1():
+        Hp = hmatvec(s["p"])
+        a1 = a_of(Hp)
+        s["Hp"].copy_(Hp)
+        s["a1"].copy_(a1)
+
+    def step2():
+        Ap = s["Hp"] - at_of(s["z1"].to(s["Hp"].dtype))
+        pAp = krylov.dot(s["p"], Ap)
+        alpha = torch.where(pAp != 0, s["rz"] / pAp, torch.zeros_like(pAp))
+        u = s["u"] + alpha * s["p"]
+        r = s["r"] - alpha * Ap
+        Mr = mg(r)
+        a2 = a_of(Mr)
+        for k, v in (("u", u), ("r", r), ("Mr", Mr), ("a2", a2)):
+            s[k].copy_(v)
+
+    def step3():
+        z = s["Mr"] - at_of(s["z2"].to(s["Mr"].dtype))
+        rz_new = krylov.dot(s["r"], z)
+        p = z + torch.where(s["rz"] != 0, rz_new / s["rz"], torch.zeros_like(s["rz"])) * s["p"]
+        s["p"].copy_(p)
+        s["rz"].copy_(rz_new)
+
+    return step1, step2, step3
 
 
 def _mean_shift(phi, src_nodes8, src_coeffs8, weights):
@@ -476,10 +556,10 @@ def cached_from_arrays(arrays: dict, device, dtype: torch.dtype) -> dict:
 
 
 def _graphs(cached) -> dict:
-    """The CUDA graphs of a discretization's Krylov iterations (keyed by
-    solve kind, shape and dtype; ``solve.graphs``), kept in its cache entry
-    beside the tensors they read.  Solves on z-slabs run eagerly and keep
-    none."""
+    """The CUDA graphs of a discretization's loops (Krylov iterations, the
+    host-projected loop's segments, the wavefront's chunks; keyed by loop
+    kind, shape and dtype; ``solve.graphs``), kept in its cache entry beside
+    the tensors they read.  Solves on z-slabs run eagerly and keep none."""
     return cached.setdefault("graphs", {})
 
 
@@ -579,7 +659,7 @@ class GridSolver:
             if mesh is not None:
                 Y = Y.gather()
                 self.last_stats["mesh"]["step3"] = f"gathered onto {self.device}"
-            phi = self._integrate_greedily(Y, grid, dtype, tm)
+            phi = self._integrate_greedily(Y, grid, dtype, tm, _graphs(cached))
         else:
             c = cached if mesh is None else self._slab_tables(cached, grid)
             u = self._integrate_exact(Y, c, grid, is_mesh, tol, options, tm)
@@ -643,11 +723,12 @@ class GridSolver:
             cached["slab_tables"] = view
         return view
 
-    def _integrate_greedily(self, Y, grid, dtype, tm) -> torch.Tensor:
+    def _integrate_greedily(self, Y, grid, dtype, tm, graphs) -> torch.Tensor:
         """Greedy integration of the normalized field: the reference's BFS
         on the host up to 32^3 (oracle parity where the loop is cheap), the
         wavefront sweeps on the device beyond (same edge increments, another
-        spanning tree, so path-dependent values differ)."""
+        spanning tree, so path-dependent values differ), their chunk graphs
+        kept in ``graphs``, the discretization's."""
         if grid.n <= 32:
             self.last_stats["step3_path"] = "greedy-bfs"
             with tm.phase("step 3 (greedy BFS integration, host)"):
@@ -657,7 +738,7 @@ class GridSolver:
         self.last_stats["step3_path"] = "greedy-wavefront"
         with tm.phase("step 3 (greedy wavefront integration, device)"):
             phi, sweeps, visited = greedy_integrate_wavefront(
-                Y.to(dtype), float(grid.cell_size), grid.shape)
+                Y.to(dtype), float(grid.cell_size), grid.shape, cache=graphs)
         self.last_stats["wavefront_sweeps"] = sweeps
         self.last_stats["wavefront_visited"] = visited
         return phi
@@ -876,7 +957,7 @@ class GridSolver:
                 rhs, cached["nodes8"], cached["coeffs8"], cached["at"],
                 self._host_gram(cached, grid), float(grid.cell_size), grid.shape,
                 self._correction_tol(options, rel, exact_projector=False),
-                options.solver_maxiter, host_loop)
+                options.solver_maxiter, host_loop, _graphs(cached))
         else:
             du, iters, _ = _solve_pinned(
                 rhs, cached["pin_nodes8"], cached["pin_coeffs8"], gram, cached["pin_at"],
