@@ -12,7 +12,8 @@ Run from the repository root:  python3 chip_smoke.py
 4. drives the main path through the public API: the grid-domain exact
    solve of a 52,290-point oriented sphere cloud on a 128^3 grid
    (h_coef=3), float32, refine_steps=0 -- one cold and three warm solves --
-   counting the kernel launches it makes;
+   counting the kernel launches it makes (K1's and the Krylov stop
+   kernel's) and the warm solves' host reads of the stop state;
 5. checks phi (finite, right shape, rel-L2 against the analytic signed
    distance |x| - 1 within 10% of the JAX package's on the same input) and
    the kernel against the plain version on the main path's own shell
@@ -106,7 +107,8 @@ Run from the repository root:  python3 chip_smoke.py
     the single device's; K2 on the row blocks of the face operator and of
     S H S, bitwise equal to one launch, timed against it; K1's ring at the
     barycenters, 1 x 4 = 2 x 2 bit for bit and within 1e-4 of one launch;
-    the launches of one profiled warm mesh solve against one device's;
+    the launches of one profiled warm mesh solve (one device's eager solve
+    is profiled in phase 22);
 19. the grid's MINRES-on-KKT Step 3 (``solver_method="minres_kkt"``), every
     solve with K1's plain versions stubbed to fail: 20 iterations at 128^3
     timed first; the icosphere at 16^3 with Step 3 in float64 on the card
@@ -132,28 +134,47 @@ Run from the repository root:  python3 chip_smoke.py
     CR (cold) against the JAX package's float32 numbers; (e) the grid and
     bunny_dec CR on 1 x 4 and 2 x 2 meshes of the card; (f) the CLI with
     ``--dtype float64``;
-21. the loops as CUDA graphs (``shm3d_torch/solve/graphs.py``): the Krylov
-    iterations on the main path at 128^3 (fast and default tier), the 256^3
-    fast tier, knot_dec CR, knot_dec vertex, the point cloud's NONE mode
-    and MINRES at 200 iterations; the host-projected loop on sphere52k-128
-    (phase 14), sphere52k-128-f64 (phase 20) and the 256^3 default tier's
-    corrections; the wavefront at 128^3.  Warm solves on the eager loops and
-    on the graphs in turns (eager, graph, graph, eager; the 256^3 default
-    tier, 7-9 s a solve, one eager and one graphed turn) on the same solver,
-    held bit for bit equal (phi, iterations, residuals, Gram-solve counts,
-    sweeps) with equal K1 and K2 launches, and one profiled solve of each
-    mode (the 256^3 default tier: the graphed one only): the host's kernel
-    launch calls and graph launches, the device's kernel events, the
-    device-busy share, mem_peak_mb, and in every loop of the graphed solve
-    its graph launches (one a Krylov iteration, three a host-projected
-    iteration, one a chunk of sweeps) with no kernel launch between them;
-    the graphs' pool MB.
+21. the Krylov stop kernel (``shm3d_torch/csrc/krylov_stop.cu``) against
+    its plain version bit for bit on the inputs its host test reads in the
+    first Krylov solve of eager solves, recorded: CG's r.z in float32 on
+    the main path and knot_dec CR and in float64 on the 16^3 icosphere,
+    MINRES's (phibar, beta) at 200 iterations in float32; the whole stop
+    state and the predicate after every call, the stop where the solve
+    stopped; the chunk graphs' start kernel against its plain version (a
+    WHILE and an IF node run their body as its condition says); each
+    instantiation's launch timed against the plain version;
+22. the device programs against the eager loops
+    (``shm3d_torch/solve/graphs.py``): the Krylov solves as a setup graph
+    and chunk graphs whose WHILE node runs to the device stop test (MINRES's
+    iteration 0 under an IF node), the grid's
+    Steps 1-2, divergence and mean shift as stage graphs, on the main path
+    at 128^3 (fast and default tier), the 256^3 fast tier, knot_dec CR,
+    knot_dec vertex, the point cloud's NONE mode and MINRES at 200
+    iterations; the host-projected loop on sphere52k-128 (phase 14),
+    sphere52k-128-f64 (phase 20) and the 256^3 default tier's corrections;
+    the wavefront at 128^3.  Warm solves on the eager loops and stages and
+    on the graphs in turns (eager, graph, graph; the 256^3 default tier,
+    7-9 s a solve, one eager and one graphed turn) on the same
+    solver, held bit for bit equal (phi, iterations, residuals, Gram-solve
+    counts, sweeps) with equal K1 and K2 launches; the graphed solves'
+    graph launches (counted by the port) and host reads of the stop state
+    as their stats predict (one a stage, a setup, a chunk graph and one
+    read a Krylov solve, MINRES one chunk graph more, three a
+    host-projected iteration, one a chunk of sweeps), one conditional node
+    in every chunk graph; one profiled eager solve (the
+    256^3 default tier: none) and a profiled graphed solve on the main path
+    and the paths without a chunk graph (the profiler traces the kernels
+    inside conditional bodies only in part, and one run ended in an illegal
+    memory access under it): the host's kernel launch calls and graph
+    launches, the device's kernel events, mem_peak_mb, fewer than 100
+    kernel launch calls in a warm main-path solve; the graphed solves' busy
+    share estimated from the eager solve's kernel time; the graphs' pool MB.
 
-Every one-device solve on the card replays its Krylov iterations, its
-host-projected loop and its wavefront sweeps as CUDA graphs: the eager loops
-(``krylov.cg``, ``krylov.minres``, ``solvers.grid.hostproj_iteration``,
-``ops.wavefront.sweep_loop``) are replaced by guards that fail the run on one
-device's CUDA vectors, except in phase 21's eager turns and the tet domain's
+Every one-device solve on the card replays its device programs as CUDA
+graphs: the eager loops (``krylov.cg``, ``krylov.minres``,
+``solvers.grid.hostproj_iteration``, ``ops.wavefront.sweep_loop``) are
+replaced by guards that fail the run on one device's CUDA vectors, except in
+phase 22's eager turns, phase 21's recording solves and the tet domain's
 row-split mesh solves, which stay eager by design (z-slab solves pass).  The earlier phases' readings repeat those
 taken on the eager loops before the graphs: checked where PERF.md records
 them (the main path's iterations and rel-L2, the face and vertex
@@ -309,7 +330,6 @@ F64_MESH_REL_L2_MAX = 1e-9
 F64_TET_MESH_REL_L2_MAX = 1e-8
 F64_KNOT_RESIDUAL_MAX = 1e-4
 F64_PHI_BANDS = dict(min=1e-2, max=1e-3, mean_abs=1e-3, src_mean_abs=1e-3)
-F64_WARM_KNOT_BEFORE_S = 110  # a warm knot_dec solve (~20 s) only if phase 20 stays < 200 s
 
 # the earlier phases' readings on the eager loops (chip runs on an NVIDIA
 # H100 80GB HBM3, 700 W, before the graphs; PERF.md), which the iteration
@@ -321,7 +341,21 @@ EAGER_FACE_ITERS, EAGER_VERTEX_ITERS = 341, 362
 EAGER_MINRES = (3973, "1.3055e-02")
 EAGER_F64_GRID = (76, "8.6153e-11")
 EAGER_F64_BUNNY_CR_ITERS, EAGER_F64_KNOT_ITERS = 647, 3245
-# phase 21: the stats a graphed solve repeats bit for bit
+# phase 22: a warm graphed main-path solve makes fewer kernel launch calls
+# than this (Steps 1-2, the divergence, the Krylov setup and the mean shift
+# are graphs; what stays eager is a handful of ops around them)
+MAIN_LAUNCH_CALLS_MAX = 100
+# phase 22's paths whose eager solve runs under the profiler: those with a
+# Krylov chunk graph, whose graphed solve's busy share is estimated from it
+# (not the 256^3 default tier, 7-9 s a solve)
+EAGER_PROFILED = ("sphere52k-128 fast tier", "sphere52k-128 default tier",
+                  "sphere52k-256 fast tier", "sphere52k-128 MINRES, 200 iterations",
+                  "knot_dec CR", "knot_dec vertex", "knot_dec point cloud NONE")
+# phase 22's paths whose graphed solve runs under the profiler: the main path
+# (its launch-call check) and the paths without a Krylov chunk graph
+GRAPH_PROFILED = ("sphere52k-128 fast tier", "sphere52k-128 host-projected",
+                  "sphere52k-128-f64 host-projected", "sphere52k-128 wavefront")
+# phase 22: the stats a graphed solve repeats bit for bit
 GRAPH_STAT_KEYS = ("iters", "rel_res", "residual", "refine_pass_rels", "refine_rel_res",
                    "correction_iters", "proj_iters", "proj_residual", "proj_refine_pass_rels",
                    "wavefront_sweeps", "wavefront_visited")
@@ -357,14 +391,17 @@ def check_no_jax_package() -> None:
 
 # Every one-device solve on the card replays its Krylov iterations, its
 # host-projected loop and its wavefront sweeps as CUDA graphs.  The eager
-# loops run there only where a phase asks for them: phase 21's comparison
+# loops run there only where a phase asks for them: phase 22's comparison
 # and the tet domain's row-split mesh solves, which stay eager by design.
 EAGER_LOOPS = {"allowed": False}
-# phase 21's paths, registered by the phases that drive them first:
+# phase 22's paths, registered by the phases that drive them first:
 # name -> (solver, geometry, options, turns); turns: the eager and graphed
 # warm solves in their order (a profiled solve of each mode in them follows)
 GRAPH_PATHS = {}
-TURNS = ("eager", "graph", "graph", "eager")
+TURNS = ("eager", "graph", "graph")
+# phase 21's paths, whose eager solve's stop-test inputs the stop kernel is
+# held to: name -> (solver, geometry, options)
+STOP_PATHS = {}
 
 
 def refuse_eager_loops(graphs):
@@ -404,15 +441,15 @@ def eager_allowed():
 
 @contextlib.contextmanager
 def eager_loops():
-    """One-device solves on the eager loops (``graphs.runner``,
-    ``hostproj_runner`` and ``wavefront_runner`` give no graph), for phase
-    21's comparison."""
+    """One-device solves on the eager loops and stages (``graphs.runner``,
+    ``stage_runner``, ``hostproj_runner`` and ``wavefront_runner`` give no
+    graph), for phases 21 and 22."""
     from shm3d_torch.solve import graphs
 
-    names = ("runner", "hostproj_runner", "wavefront_runner")
+    names = ("runner", "stage_runner", "hostproj_runner", "wavefront_runner")
     saved = [getattr(graphs, n) for n in names]
     for n in names:
-        setattr(graphs, n, lambda cache, key, b: None)
+        setattr(graphs, n, lambda *args, **kw: None)
     try:
         with eager_allowed():
             yield
@@ -480,14 +517,18 @@ def chunks(yk, q, p) -> str:
 
 
 def profile_solve(label, fn, warm_s, smi, names=("sell_kernel", "yukawa_partial", "yukawa_merge"),
-                  rounds=1):
+                  rounds=1, eager=False):
     """One solve under torch.profiler (``rounds=2``: after one profiled
     warm-up, the profiler's own start-up, which the first profile of the
     process needs): the device time of its kernels (kernel events
     only: an operator's row repeats its kernels' time), its wall time, the
     kernels that took most device time, and the device time of the kernels
     whose names contain ``names``.  ``warm_s``: the unprofiled warm solve's
-    wall time, which the kernels' time is also held against."""
+    wall time, which the kernels' time is also held against.  ``eager``: the
+    solve on the eager loops and stages, for a path whose Krylov solves are
+    chunk graphs (the profiler traces the kernels inside their conditional
+    bodies only in part, and one run ended in an illegal memory access
+    under it)."""
     from torch.profiler import ProfilerActivity, profile
 
     def dev_us(e):
@@ -498,7 +539,8 @@ def profile_solve(label, fn, warm_s, smi, names=("sell_kernel", "yukawa_partial"
         t0 = time.perf_counter()
         # device activity only: the numbers below read kernel events, and the
         # host ops' events cost the script tens of seconds a solve to collect
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof, \
+                eager_loops() if eager else contextlib.nullcontext():
             fn()
             torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
@@ -510,6 +552,7 @@ def profile_solve(label, fn, warm_s, smi, names=("sell_kernel", "yukawa_partial"
     ours = ", ".join(f"{n} {sum(dev_us(e) for e in kernels if n in e.key) / 1e3:.2f} ms "
                      f"x{sum(e.count for e in kernels if n in e.key)}" for n in names)
     launches = sum(e.count for e in kernels)
+    label += " (on the eager loops: the same kernels)" if eager else ""
     print(f"  profiled {label}: {total_ms:.1f} ms of kernel time in "
           f"{launches} launches, {wall_ms:.1f} ms of wall time "
           f"under the profiler (busy {total_ms / wall_ms:.1%}; {total_ms / 1e3 / warm_s:.1%} "
@@ -757,6 +800,7 @@ def tet_phase(smi, dev, ceiling):
     check(all(r["stats"]["iters"] == EAGER_FACE_ITERS for r in runs),
           f"the face solves repeat the eager loops' {EAGER_FACE_ITERS} iterations")
     GRAPH_PATHS["knot_dec CR"] = (solver, geom, opts, TURNS)
+    STOP_PATHS["knot_dec CR, CG float32"] = (solver, geom, opts)
 
     phi = res.phi
     check(phi.shape == (KNOT_VERTICES,), "phi shape")
@@ -843,13 +887,11 @@ def tet_phase(smi, dev, ceiling):
         print(f"  {name} bytes {nbytes / 1e9:.4f} GB: {at_ceiling:.4f} ms at the "
               f"measured ceiling ({at_ceiling / t_kernel:.1%} of the kernel's time), "
               f"{at_peak:.4f} ms at 3.35 TB/s ({at_peak / t_kernel:.1%})")
-    prof = profile_solve("warm tet solve", lambda: solver.compute_distance(geom, opts),
-                         statistics.median(warm), smi)
     k1 = dict(launches=k1_launches, max_abs_err=k1_err, ms=k1_ms, plain_ms=k1_plain_ms,
               pairs=int(q.shape[0]) * int(pts.shape[0]), queries=int(q.shape[0]),
               sources=int(pts.shape[0]))
     one = dict(warm_median_s=statistics.median(warm), iters=stats["iters"],
-               profile=prof, k2_ms=t_kernel, k1_ms=k1_ms, k2_per_solve=runs[-1]["k2"],
+               k2_ms=t_kernel, k1_ms=k1_ms, k2_per_solve=runs[-1]["k2"],
                mem_peak_mb=stats["mem_peak_mb"])
     return k1, dict(launches=k2_launches, max_abs_err=err, ms=t_kernel, plain_ms=t_plain,
                     bound_ms=bound_ms, library_ms=t_lib), one
@@ -1006,6 +1048,12 @@ def vertex_phase(smi, dev):
     plain_runs, plain_res = timed_solves(solver, geom, opts, 3, yk, pell)
     cached["H_ell"] = H
     cached.pop("vertex_graphs")
+    # one graphed solve on the restored operator captures its chunk graph
+    # again, outside the profiler: phase 22's turns are warm, and a chunk
+    # graph captured under the profiler and launched under it again ended
+    # one run in an illegal memory access
+    solver.compute_distance(geom, opts)
+    torch.cuda.synchronize()
     print(f"  warm solves with H through the plain gathers: "
           f"{[round(r['s'], 4) for r in plain_runs]} s, iters "
           f"{[r['stats']['iters'] for r in plain_runs]}, sliced-ELL launches "
@@ -1014,8 +1062,6 @@ def vertex_phase(smi, dev):
           f"{plain_runs[-1]['stats']['residual']:.3e}; against the kernel route's "
           f"{[round(w, 4) for w in warm]} s at {stats['iters']} iters; phi differs by "
           f"{np.linalg.norm(plain_res.phi - res.phi) / np.linalg.norm(res.phi):.2e}")
-    profile_solve("warm vertex solve", lambda: solver.compute_distance(geom, opts),
-                  statistics.median(warm), smi)
     return k1_launches, k2
 
 
@@ -1699,8 +1745,7 @@ def tet_mesh_phase(smi, dev, sfu, one):
         prof = profile_solve("warm CR solve on 4 shards", lambda: s4.compute_distance(geom, opts),
                              statistics.median(warm), smi)
     print(f"  a warm mesh solve: {prof['launches']} launches, {prof['kernel_ms']:.1f} ms of kernel "
-          f"time; one device {one['profile']['launches']} launches, "
-          f"{one['profile']['kernel_ms']:.1f} ms ({smi})")
+          f"time (one device's eager solve: phase 22) ({smi})")
     tet_ring = dict(launches=launches["partial"] + launches["merge"], max_abs_err=err_plain,
                     ms=ring_ms, plain_ms=ring_plain_ms, bound_ms=bound)
     tet_mesh = {k: k2_l[k] + k2_h[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
@@ -1745,7 +1790,7 @@ def grid256_phase(smi, dev, sfu, geom, analytic_128):
                              solver_maxiter=2000, step1_method="auto", disk_cache=False)
     solver = SignedHeatSolver("grid", device=dev)
     GRAPH_PATHS["sphere52k-256 fast tier"] = (solver, geom, opts, TURNS)
-    # the default tier's warm solves take 7-9 s each: phase 21 takes one
+    # the default tier's warm solves take 7-9 s each: phase 22 takes one
     # eager and one graphed turn and profiles the graphed solve only
     GRAPH_PATHS["sphere52k-256 default tier"] = (solver, geom, opts.with_(refine_steps=1),
                                                  ("eager", "graph"))
@@ -1793,7 +1838,8 @@ def grid256_phase(smi, dev, sfu, geom, analytic_128):
     check(lo <= analytic / analytic_128 <= hi, "256^3 analytic rel-L2 0.4-0.6x 128^3's")
     # the default tier's time is in refine_detail and the host-loop counters
     profile_solve("warm 256^3 fast-tier solve", lambda: solver.compute_distance(geom, opts),
-                  statistics.median([r["s"] for r in fast[1:]]), smi, names=GRID_KERNELS)
+                  statistics.median([r["s"] for r in fast[1:]]), smi, names=GRID_KERNELS,
+                  eager=True)
 
     # K1 at the 256^3 launch shapes
     plan = next(v for v in cached.values() if isinstance(v, DeviceShellPlan))
@@ -2231,11 +2277,12 @@ def minres_phase(smi, dev, solver, geom, opts, main):
     # --- (c) 200 iterations: one phi twice, and four shards of the card
     o200 = kkt.with_(solver_maxiter=200)
     GRAPH_PATHS["sphere52k-128 MINRES, 200 iterations"] = (solver, geom, o200, TURNS)
+    STOP_PATHS["sphere52k-128 MINRES float32, 200 iterations"] = (solver, geom, o200)
     (ra, _, sta), (rb, _, _) = one(solver, o200), one(solver, o200)
     with no_plain_yukawa(yk):
         profile_solve("20-iteration MINRES solve",
                       lambda: solver.compute_distance(geom, kkt.with_(solver_maxiter=20)),
-                      s20, smi, names=GRID_KERNELS)
+                      s20, smi, names=GRID_KERNELS, eager=True)
     mesh_solver = tgrid.GridSolver(mesh=device_mesh(devices=[dev] * 4))
     mesh_solver._cache.update(impl._cache)  # the one device's discretization
     rm, s_m, stm = one(mesh_solver, o200)
@@ -2539,7 +2586,9 @@ def f64_phase(smi, dev, geom, main):
     ico = make_icosphere(2)
     o_ico = SignedHeatOptions(dtype="float64", refine_steps=0, solver_tol=1e-12,
                               solver_maxiter=20000, disk_cache=False)
-    (r_ico,), res_ico = on_card(SignedHeatSolver("grid", device=dev), ico, o_ico)
+    ico_solver = SignedHeatSolver("grid", device=dev)
+    STOP_PATHS["icosphere-16, CG float64"] = (ico_solver, ico, o_ico)
+    (r_ico,), res_ico = on_card(ico_solver, ico, o_ico)
     rel_oracle = rel(res_ico.phi, oracle.solve_grid(ico, o_ico).phi)
     print(f"  icosphere {res_ico.grid.n}^3, solver_tol 1e-12: tier {r_ico['stats']['tier']}, "
           f"iters {r_ico['stats']['iters']}, rel_res {r_ico['stats']['rel_res']:.3e}; rel-L2 vs "
@@ -2592,28 +2641,22 @@ def f64_phase(smi, dev, geom, main):
     knot = read_geometry(KNOT)
     k_solver = SignedHeatSolver("tet", device=dev)
     k_opts = SignedHeatOptions(dtype="float64", disk_cache=False)
-    kruns, kres = on_card(k_solver, knot, k_opts)
-    if time.perf_counter() - t_phase < F64_WARM_KNOT_BEFORE_S:
-        warm_runs, kres = on_card(k_solver, knot, k_opts)
-        kruns += warm_runs
-    for k, r in enumerate(kruns):
-        ks = r["stats"]
-        print(f"  knot_dec CR in float64 ({'cold' if k == 0 else 'warm'}): {r['s']:.3f} s, iters "
-              f"{ks['iters']}, final residual {ks['residual']:.3e} (limit "
-              f"{F64_KNOT_RESIDUAL_MAX:g}), projection {ks['proj_iters']} iters "
-              f"{ks['proj_residual']:.3e}, K1 float64 {r['f64'][0]}, K2 {r['k2']}, mem_peak_mb "
-              f"{ks['mem_peak_mb']:.1f}, phases {json.dumps(ks['phases'])} ({smi})")
-        check(ks["step3_path"] == "crouzeix-raviart" and ks["residual"] <= F64_KNOT_RESIDUAL_MAX
-              and ks["proj_residual"] <= PROJ_RESIDUAL_MAX and r["f64"] == (1, 0, 0)
-              and r["k2"] == 0, "knot_dec CR in float64: residuals, K1 float64 once, no K2")
-    check(len({(r["phi"], r["stats"]["iters"]) for r in kruns}) == 1,
-          "the knot_dec float64 solves give one phi")
-    check(kruns[0]["stats"]["iters"] == EAGER_F64_KNOT_ITERS,
+    (r,), kres = on_card(k_solver, knot, k_opts)
+    ks = r["stats"]
+    print(f"  knot_dec CR in float64 (cold): {r['s']:.3f} s, iters {ks['iters']}, final "
+          f"residual {ks['residual']:.3e} (limit {F64_KNOT_RESIDUAL_MAX:g}), projection "
+          f"{ks['proj_iters']} iters {ks['proj_residual']:.3e}, K1 float64 {r['f64'][0]}, K2 "
+          f"{r['k2']}, mem_peak_mb {ks['mem_peak_mb']:.1f}, phases {json.dumps(ks['phases'])} "
+          f"({smi})")
+    check(ks["step3_path"] == "crouzeix-raviart" and ks["residual"] <= F64_KNOT_RESIDUAL_MAX
+          and ks["proj_residual"] <= PROJ_RESIDUAL_MAX and r["f64"] == (1, 0, 0)
+          and r["k2"] == 0, "knot_dec CR in float64: residuals, K1 float64 once, no K2")
+    check(ks["iters"] == EAGER_F64_KNOT_ITERS,
           f"knot_dec CR in float64 repeats the eager loops' {EAGER_F64_KNOT_ITERS} iterations")
     check_bands(kres, dict(min=JAX_PHI_MIN, max=JAX_PHI_MAX, mean_abs=JAX_PHI_MEAN_ABS,
                            src_mean_abs=JAX_PHI_MEAN_ABS_SRC), F64_PHI_BANDS,
                 "knot_dec CR in float64")
-    per_path["tet_knot"] = dict(launches=sum(r["f64"][0] for r in kruns))
+    per_path["tet_knot"] = dict(launches=r["f64"][0])
 
     # (e) the grid on 1 x 4 and 2 x 2 from the one device's discretization
     grid_mesh = []
@@ -2667,26 +2710,39 @@ def f64_phase(smi, dev, geom, main):
     entry.update(launches=sum(v["launches"] for v in per_path.values()), per_path=per_path)
     return entry
 
-def graph_runs(st) -> list:
-    """The graph launches each loop of a solve makes on the graphs, in
-    order, from its stats: one an iteration of a Krylov loop (the tet
-    paths' chunks: face or vertex solves, then the CR projection's; the
-    grid's projected CG and MINRES), three an iteration of the grid's
-    host-projected loop (the host-projected tier's solves, the subsampled
-    tier's corrections), one a chunk of wavefront sweeps."""
+def expected_graph_launches(st) -> tuple:
+    """(graph launches, host reads of the Krylov stop state) of a warm
+    graphed solve, from its stats: on the grid one a stage (Steps 1-2, the
+    divergence on the exact paths, the mean shift); each Krylov solve its
+    setup graph, its chunk graph (MINRES two: iteration 0, then the loop)
+    and one host read (the grid's projected CG, the primary or each
+    correction solve; the tet paths' face or vertex solves, then the CR
+    projection's); three an iteration of the grid's host-projected loop
+    (the host-projected tier's solves, the subsampled tier's corrections);
+    one a chunk of wavefront sweeps."""
     from shm3d_torch.ops.wavefront import CHECK_EVERY
 
-    if "wavefront_sweeps" in st:
-        return [-(-st["wavefront_sweeps"] // CHECK_EVERY)]
+    solves, loops, stages = 0, 0, 0
     if "chunks" in st:
-        loops = [c["iters"] for c in st["chunks"] + st.get("proj_chunks", [])]
+        solves = len(st["chunks"] + st.get("proj_chunks", []))
+    elif "wavefront_sweeps" in st:
+        stages, loops = 2, -(-st["wavefront_sweeps"] // CHECK_EVERY)
     else:
+        stages = 3
         hostproj = st["tier"] == "host-projected"
-        primary = 3 if hostproj and st["step3_path"] == "projected-mg-pcg" else 1
-        correction = 3 if hostproj or st["tier"] == "subsampled" else 1
-        loops = [primary * st["iters"]] + [correction * k
-                                          for k in st.get("correction_iters", [])]
-    return [k for k in loops if k > 0]
+        if st["step3_path"] == "minres-kkt":
+            loops += 1  # iteration 0's chunk graph
+            solves += 1
+        elif hostproj:
+            loops += 3 * st["iters"]
+        else:
+            solves += 1
+        for k in st.get("correction_iters", []):
+            if hostproj or st["tier"] == "subsampled":
+                loops += 3 * k
+            else:
+                solves += 1
+    return stages + loops + 2 * solves, solves
 
 
 def graph_stats(st) -> dict:
@@ -2739,20 +2795,251 @@ def launch_profile(fn) -> dict:
                 launch_calls=len(host) - n_graph, graph_calls=n_graph, graph_runs=runs)
 
 
+@contextlib.contextmanager
+def recorded_stop_inputs():
+    """The first ``krylov.cg`` or ``krylov.minres`` call in the block (an
+    eager solve): its keyword arguments (tol, maxiter, rhs_mnorm, stall
+    window), and what its host stop test reads, copied as computed: cg's
+    ``krylov.dot`` values (r.z, b . M b, then p.Ap and r.z an iteration),
+    minres's (phibar, beta) pairs (``torch.stack`` in krylov: the start's,
+    then one an iteration)."""
+    from shm3d_torch.solve import krylov
+
+    rec = {"dots": [], "stacks": [], "on": False}
+    cg, minres, dot = krylov.cg, krylov.minres, krylov.dot
+
+    class Torch:  # krylov's torch: stack records, the rest is torch
+        def __getattr__(self, name):
+            return getattr(torch, name)
+
+        def stack(self, ts, *args, **kw):
+            out = torch.stack(ts, *args, **kw)
+            if rec["on"]:
+                rec["stacks"].append(out.clone())
+            return out
+
+    def recorded_dot(a, b):
+        out = dot(a, b)
+        if rec["on"]:
+            rec["dots"].append(out.clone())
+        return out
+
+    def first(loop, kind):
+        def run(matvec, b, **kw):
+            if "kind" in rec:
+                return loop(matvec, b, **kw)
+            rec.update(kind=kind, kw=kw, on=True)
+            try:
+                return loop(matvec, b, **kw)
+            finally:
+                rec["on"] = False
+        return run
+
+    krylov.cg, krylov.minres = first(cg, "cg"), first(minres, "minres")
+    krylov.dot, krylov.torch = recorded_dot, Torch()
+    try:
+        yield rec
+    finally:
+        krylov.cg, krylov.minres, krylov.dot, krylov.torch = cg, minres, dot, torch
+
+
+def stop_case(stop, dev, name, solver, geom, opts) -> dict:
+    """One eager solve recorded (``recorded_stop_inputs``), then the stop
+    kernel and its plain version on the recorded inputs, one call an
+    iteration from the start's: the whole stop state and the predicate
+    compared bit for bit after every call, and the iteration at which the
+    plain version stops against the solve's."""
+    with recorded_stop_inputs() as rec, eager_loops():
+        solver.compute_distance(geom, opts)
+    kw = rec["kw"]
+    if rec["kind"] == "cg":
+        dots = rec["dots"]
+        given = kw.get("rhs_mnorm") is not None
+        rz0, bmb = dots[0], None if given else dots[1]
+        seq = [(rz,) for rz in dots[(2 if given else 3)::2]]
+        start_args, dtype = (rz0, bmb), rz0.dtype
+        window = kw.get("stall_window") or kw["maxiter"] + 1
+        params = stop.params(kw["tol"], kw["maxiter"], window, torch.finfo(dtype).tiny,
+                             float(kw["rhs_mnorm"]) if given else None)
+        run_cuda = lambda rz, st, go, s: stop.cg_stop_cuda(rz, None, st, go, s)
+        run_plain = lambda rz, st, go, s: stop.cg_stop_torch(rz, None, st, go, s)
+        start_cuda = lambda st, go: stop.cg_stop_cuda(rz0, bmb, st, go, True)
+        start_plain = lambda st, go: stop.cg_stop_torch(
+            rz0.cpu(), None if bmb is None else bmb.cpu(), st, go, True)
+    else:
+        pairs = rec["stacks"]
+        dtype = pairs[0].dtype
+        ref = kw.get("rhs_mnorm")
+        ref = pairs[0][1] if ref is None else torch.as_tensor(ref, dtype=dtype, device=dev)
+        seq = [(p[0], p[1]) for p in pairs[1:]]
+        params = stop.params(kw["tol"], kw["maxiter"], 0, torch.finfo(dtype).tiny)
+        run_cuda = lambda pb, bt, st, go, s: stop.minres_stop_cuda(pb, bt, None, st, go, s)
+        run_plain = lambda pb, bt, st, go, s: stop.minres_stop_torch(pb, bt, None, st, go, s)
+        start_cuda = lambda st, go: stop.minres_stop_cuda(pairs[0][0], pairs[0][1], ref, st,
+                                                          go, True)
+        start_plain = lambda st, go: stop.minres_stop_torch(
+            pairs[0][0].cpu(), pairs[0][1].cpu(), ref.cpu(), st, go, True)
+    iters = len(seq)
+    sd, gd = stop.new_state(dev)
+    sh, gh = stop.new_state("cpu")
+    for s in (sd, sh):
+        s[:params.shape[0]] = params
+    start_cuda(sd, gd)
+    start_plain(sh, gh)
+    same, stopped, worst = True, None, 0.0
+    for i, args in enumerate(seq + seq[-1:]):
+        same &= torch.equal(sd.cpu().nan_to_num(-1.0), sh.nan_to_num(-1.0)) and \
+            bool(gd) == bool(gh)
+        worst = max(worst, float((sd.cpu() - sh).abs().nan_to_num(0.0).max()))
+        if not bool(gh):
+            stopped = i
+            break
+        run_cuda(*args, sd, gd, False)
+        run_plain(*(a.cpu() for a in args), sh, gh, False)
+    case = dict(kind=rec["kind"], dtype=str(dtype).replace("torch.", ""), iters=iters,
+                stopped=stopped, bitwise=same, max_abs_err=worst)
+    check(same and stopped == iters,
+          f"{name}: the {rec['kind']} stop kernel ({case['dtype']}) repeats its plain version "
+          f"bit for bit on the solve's {iters} iterations' inputs and stops where the solve "
+          f"stopped ({stopped})")
+    return case
+
+
+def start_kernel_case(stop, dev) -> dict:
+    """The chunk graphs' start kernel against its plain version
+    (``stop.chunk_start_torch``): a chunk graph whose body adds 1 to a
+    counter and runs the CG stop kernel (on r.z = 1 to a maxiter of 3)
+    runs its body as the plain condition says, for go false and true, a
+    WHILE node (to the stop) and an IF node (once).  Then timed: a launch
+    of the WHILE graph with go false (the start kernel and the node's
+    evaluation) against the plain version's host read.  Launches made here
+    compare; they are not counted."""
+    from shm3d_torch.solve import graphs
+
+    count = torch.zeros((), dtype=torch.int64, device=dev)
+    rz = torch.ones((), device=dev)
+    fresh = torch.zeros(stop.NSLOTS, dtype=torch.float64)
+    fresh[:5] = stop.params(0.0, 3, 1 << 30, 1e-38)
+    worst, runs, graphs_kept = 0, [], {}
+    for loop in (True, False):
+        st, go = stop.new_state(dev)
+        chunk = stop.CondGraph(dev, loop)
+        body = torch.cuda.CUDAGraph(keep_graph=True)
+        cond = stop.chunk_condition(chunk.handle) if loop else contextlib.nullcontext()
+        with graphs.LaunchCounts().recording(), cond, torch.cuda.graph(body):
+            count.add_(1)
+            stop.cg_stop_cuda(rz, None, st, go, False)
+        chunk.build(body.raw_cuda_graph(), go)
+        for g in (False, True, False, True):
+            count.zero_()
+            st.copy_(fresh)
+            go.fill_(g)
+            want = (3 if loop else 1) if stop.chunk_start_torch(go) else 0
+            chunk.launch(torch.cuda.current_stream(dev))
+            torch.cuda.synchronize()
+            got = (int(count), int(st[stop.K].item()))
+            runs.append((loop, g, want, got))
+            worst = max(worst, abs(got[0] - want), abs(got[1] - want))
+        graphs_kept[loop] = (chunk, body, st, go)
+    check(worst == 0, f"the chunk start kernel: the bodies run as its plain version's "
+                      f"condition says ({runs})")
+    chunk, _, st, go = graphs_kept[True]
+    go.fill_(False)
+    stream = torch.cuda.current_stream(dev)
+    ms = time_ms(lambda: chunk.launch(stream), 200)
+    plain_ms = time_ms(lambda: stop.chunk_start_torch(go), 200)
+    return dict(max_abs_err=float(worst), ms=ms, plain_ms=plain_ms,
+                bound_ms=1 / HBM_BYTES_S * 1e3, runs=runs)
+
+
+def stop_kernel_phase(smi, dev, launches, start_launches) -> list:
+    """Phase 21: the Krylov stop kernel (csrc/krylov_stop.cu) against its
+    plain version bit for bit on the inputs recorded from eager solves
+    (``STOP_PATHS``: CG in float32 on the main path and knot_dec CR, in
+    float64 on the 16^3 icosphere; MINRES in float32 at 200 iterations):
+    the whole stop state and the predicate after every call, and the stop
+    at the solve's iteration; the chunk graphs' start kernel against its
+    plain version; then timed, a launch of each instantiation in a graph of
+    200 against the plain version's call.  Returns their kernels-line
+    entries."""
+    from shm3d_torch.solve import graphs, stop
+
+    t_phase = time.perf_counter()
+    cases = {name: stop_case(stop, dev, name, *path) for name, path in STOP_PATHS.items()}
+    worst = max(c["max_abs_err"] for c in cases.values())
+    start = start_kernel_case(stop, dev)
+    # device time a launch as the chunk graphs run it: 200 launches captured
+    # into one graph (noted, not counted: they compare, the main path counts)
+    per_kind = {}
+    reps = 200
+    for kind, dtype in (("cg", torch.float32), ("cg", torch.float64),
+                        ("minres", torch.float32)):
+        one = torch.ones((), dtype=dtype, device=dev)
+        sd, gd = stop.new_state(dev)
+        sd[:5] = stop.params(1e-30, 1 << 30, 1 << 30, 1e-38)
+        if kind == "cg":
+            call = lambda: stop.cg_stop_cuda(one, None, sd, gd, False)
+            plain = lambda: stop.cg_stop_torch(one, None, sd, gd, False)
+        else:
+            call = lambda: stop.minres_stop_cuda(one, one, None, sd, gd, False)
+            plain = lambda: stop.minres_stop_torch(one, one, None, sd, gd, False)
+        graph = torch.cuda.CUDAGraph()
+        with graphs.LaunchCounts().recording():
+            call()
+            torch.cuda.synchronize()
+            with torch.cuda.graph(graph):
+                for _ in range(reps):
+                    call()
+            ms = time_ms(graph.replay, 20) / reps
+            eager_us = host_us(call, 500)
+        plain_ms = time_ms(plain, 200)
+        per_kind[f"{kind}_{str(dtype).replace('torch.', '')}"] = dict(
+            ms=ms, eager_host_us=eager_us, plain_ms=plain_ms)
+    # bytes: r.z (MINRES phibar and beta) read, the stop state read and
+    # written, the predicate written
+    nbytes = 8 + 2 * 8 * stop.NSLOTS + 1
+    bound_ms = nbytes / HBM_BYTES_S * 1e3
+    main = per_kind["cg_float32"]
+    print(f"Krylov stop kernel vs its plain version: {json.dumps(cases)}; a launch in a graph of "
+          f"{reps} (launch latency bound) and an eager call's host time, against the plain "
+          f"version: {json.dumps(per_kind)}; bytes bound {bound_ms * 1e6:.3f} ns; {launches} "
+          f"launches on the main path ({smi})")
+    print(f"chunk start kernel vs its plain version: {start['runs']} (WHILE?, go, bodies the "
+          f"plain condition asks, (bodies run, k)); a launch of a chunk graph whose solve has "
+          f"stopped {start['ms'] * 1e3:.3f} us, the plain host read {start['plain_ms'] * 1e3:.1f} "
+          f"us; {start_launches} launches on the main path; phase "
+          f"{time.perf_counter() - t_phase:.1f} s ({smi})")
+    return [{"name": "krylov_stop", "route": "cuda",
+             "source": "shm3d_torch/csrc/krylov_stop.cu",
+             "replaces": "shm3d/solve/krylov.py:89", "launches": launches,
+             "max_abs_err": worst, "ms": main["ms"], "plain_ms": main["plain_ms"],
+             "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None,
+             "per_path": {"cases": cases, "per_instantiation": per_kind}},
+            {"name": "krylov_chunk_start", "route": "cuda",
+             "source": "shm3d_torch/csrc/krylov_stop.cu",
+             "replaces": "shm3d/solve/krylov.py:89", "launches": start_launches,
+             "max_abs_err": start["max_abs_err"], "ms": start["ms"],
+             "plain_ms": start["plain_ms"], "bound_ms": start["bound_ms"], "bound_by": "bytes",
+             "library_ms": None}]
+
+
 def graph_phase(smi):
-    """Phase 21: each path the graphs serve (the Krylov iterations, the
-    host-projected loop, the wavefront), warm, against the eager loops on
-    the same solver and discretization: solves in turns (eager, graph,
-    graph, eager; the 256^3 default tier, 7-9 s a solve, one eager and one
+    """Phase 22: each path the graphs serve (the Krylov solves, the stages,
+    the host-projected loop, the wavefront), warm, against the eager loops
+    on the same solver and discretization: solves in turns (eager, graph,
+    graph; the 256^3 default tier, 7-9 s a solve, one eager and one
     graphed) held bit for bit equal (phi, iterations, residuals, Gram-solve
-    counts, sweeps) with equal K1 and K2 launches, timed; then one profiled
-    solve of each mode (the 256^3 default tier: the graphed one): host
-    launch calls, device kernel events, device-busy share, mem_peak_mb, and
-    in every loop of the graphed solve its graph launches (one a Krylov
-    iteration, three a host-projected iteration, one a chunk of sweeps)
-    with no kernel launch between them."""
+    counts, sweeps) with equal K1 and K2 launches, timed, with the host
+    reads of the stop state and the graph launches as the stats predict
+    (``expected_graph_launches``); then, on the paths with a chunk graph
+    but the 256^3 default tier (``EAGER_PROFILED``), one profiled eager
+    solve and, on the main path and the paths without a chunk
+    graph (``GRAPH_PROFILED``), one profiled graphed solve: host launch
+    calls, device kernel events, mem_peak_mb; the graphed solve's busy share
+    estimated as the eager solve's kernel time over the graphed warm
+    median."""
     from shm3d_torch.ops import yukawa as yk
-    from shm3d_torch.solve import pell
+    from shm3d_torch.solve import graphs, pell
 
     t_phase = time.perf_counter()
     summary = {}
@@ -2761,38 +3048,55 @@ def graph_phase(smi):
         runs = {"eager": [], "graph": []}
         for mode in turns:
             with eager_loops() if mode == "eager" else contextlib.nullcontext():
-                k1, k2 = yk.KERNEL_LAUNCHES, pell.KERNEL_LAUNCHES
+                k1, k2, reads = yk.KERNEL_LAUNCHES, pell.KERNEL_LAUNCHES, graphs.HOST_READS
+                launched = graphs.GRAPH_LAUNCHES
                 t0 = time.perf_counter()
                 res = solver.compute_distance(geom, opts)
                 torch.cuda.synchronize()
                 st = solver.last_stats
                 runs[mode].append(dict(
                     s=time.perf_counter() - t0, k1=yk.KERNEL_LAUNCHES - k1,
-                    k2=pell.KERNEL_LAUNCHES - k2, mem=st["mem_peak_mb"],
-                    reserved=torch.cuda.memory_reserved() / 1e6,
-                    stats=graph_stats(st), loops=graph_runs(st),
+                    k2=pell.KERNEL_LAUNCHES - k2, reads=graphs.HOST_READS - reads,
+                    launched=graphs.GRAPH_LAUNCHES - launched,
+                    mem=st["mem_peak_mb"], reserved=torch.cuda.memory_reserved() / 1e6,
+                    stats=graph_stats(st), expected=expected_graph_launches(st),
                     phi=hashlib.sha1(np.ascontiguousarray(res.phi).tobytes()).hexdigest()))
-        profiled = ("eager", "graph") if turns.count("eager") > 1 else ("graph",)
+        # the graphed solve under the profiler only where no chunk graph runs,
+        # and on the main path for its launch-call check: the profiler traces
+        # the kernels inside the chunk graphs' WHILE bodies only in part, and
+        # one run ended in an illegal memory access under it
+        profiled = ("eager",) if name in EAGER_PROFILED else ()
+        if name in GRAPH_PROFILED:
+            profiled += ("graph",)
         prof = {}
         for mode in profiled:
             with eager_loops() if mode == "eager" else contextlib.nullcontext():
                 prof[mode] = launch_profile(lambda: solver.compute_distance(geom, opts))
-                prof[mode]["loops"] = graph_runs(solver.last_stats)
+                prof[mode]["expected"] = expected_graph_launches(solver.last_stats)
             # kernel time over the unprofiled warm median
             prof[mode]["busy"] = prof[mode]["kernel_ms"] / 1e3 / statistics.median(
                 r["s"] for r in runs[mode])
         e, g = runs["eager"], runs["graph"]
+        # the graphed solve runs the eager solve's kernels: its busy share is
+        # estimated as the eager kernel time over its warm median (the
+        # profiler sees the kernels inside conditional bodies only in part,
+        # so no trace of the graphed solve measures it)
+        busy = (prof["eager"]["kernel_ms"] / 1e3 / statistics.median(r["s"] for r in g)
+                if "eager" in prof else None)
         same = len({r["phi"] for r in e + g}) == 1 and all(
             r["stats"] == e[0]["stats"] for r in e + g)
         counts = {(r["k1"], r["k2"]) for r in e + g}
         te, tg = statistics.median(r["s"] for r in e), statistics.median(r["s"] for r in g)
+        chunk_graphs = path_chunk_graphs(solver)
+        nodes = [c for cg in chunk_graphs for _, c in cg.node_counts]
         print(f"  {name}: eager {[round(r['s'], 4) for r in e]} s, graph "
               f"{[round(r['s'], 4) for r in g]} s (median {te:.4f} against {tg:.4f} s, "
               f"{te / tg:.2f}x); bit for bit {same} (iters {e[0]['stats']['iters']}, graph "
-              f"launches a loop {g[0]['loops']}, Gram solves "
-              f"{e[0]['stats']['host_loop']} + {e[0]['stats']['correction_host_loop']}, "
-              f"sweeps {e[0]['stats']['wavefront_sweeps']}); K1, K2 launches a solve "
-              f"{sorted(counts)}")
+              f"launches and host reads a solve {g[0]['expected']}, read {g[0]['reads']}, "
+              f"Gram solves {e[0]['stats']['host_loop']} + "
+              f"{e[0]['stats']['correction_host_loop']}, sweeps "
+              f"{e[0]['stats']['wavefront_sweeps']}); K1, K2 launches a solve "
+              f"{sorted(counts)}; conditional nodes of the chunk graphs {nodes}")
         for mode in profiled:
             p, r = prof[mode], runs[mode][0]
             print(f"    {mode}: {p['launch_calls']} kernel launch calls and {p['graph_calls']} "
@@ -2801,36 +3105,70 @@ def graph_phase(smi):
                   f"warm median; {p['wall_ms']:.1f} ms under the profiler); runs of graph "
                   f"launches {p['graph_runs']}; "
                   f"mem_peak_mb {r['mem']:.1f}, reserved {r['reserved']:.1f} MB")
+        print(f"    graph: {g[0]['launched']} graph launches a solve (counted by the port); busy "
+              f"{'not estimated' if busy is None else f'estimated {busy:.1%}'} (not measured: "
+              f"the eager solve's kernel time, the same kernels, over the graphed warm median); "
+              f"mem_peak_mb {g[0]['mem']:.1f}")
         check(same, f"{name}: the graphed solves repeat the eager loop's phi, iterations, "
               f"residuals, Gram solves and sweeps bit for bit")
         check(len(counts) == 1, f"{name}: equal K1 and K2 launches under both")
+        check(all(r["reads"] == 0 for r in e) and all(r["reads"] == r["expected"][1] for r in g),
+              f"{name}: one host read of the stop state a Krylov solve, none on the eager loops")
+        check(all(c == 1 for cg in chunk_graphs for _, c in cg.node_counts),
+              f"{name}: every chunk graph holds its conditional node (no fallback)")
         if "eager" in prof:
             check(prof["eager"]["graph_calls"] == 0 and prof["eager"]["launch_calls"] > 0,
                   f"{name}: the eager solve launched kernels one at a time")
-        check(sorted(prof["graph"]["graph_runs"]) == sorted(prof["graph"]["loops"])
-              and prof["graph"]["graph_calls"] == sum(prof["graph"]["loops"]),
-              f"{name}: every loop took its graph launches (one a Krylov iteration, three a "
-              f"host-projected iteration, one a chunk of sweeps) and no kernel launch "
-              f"between them")
+        check(all(r["launched"] == r["expected"][0] for r in g)
+              and all(prof[m]["graph_calls"] == prof[m]["expected"][0] for m in profiled
+                      if m == "graph"),
+              f"{name}: the graphed solve took its graph launches (one a stage; a setup and "
+              f"a chunk graph a Krylov solve, MINRES one more; three a host-projected "
+              f"iteration; one a chunk of sweeps)")
+        check(all(r["launched"] == 0 for r in e), f"{name}: no graph launch on the eager loops")
+        if name == "sphere52k-128 fast tier":
+            check(prof["graph"]["launch_calls"] < MAIN_LAUNCH_CALLS_MAX,
+                  f"a warm main-path solve makes fewer than {MAIN_LAUNCH_CALLS_MAX} kernel "
+                  f"launch calls ({prof['graph']['launch_calls']})")
         summary[name] = dict(
             eager_s=[r["s"] for r in e], graph_s=[r["s"] for r in g],
-            iters=e[0]["stats"]["iters"], graph_launches=g[0]["loops"],
+            iters=e[0]["stats"]["iters"], graph_launches=g[0]["expected"][0],
+            host_reads=g[0]["reads"], conditional_nodes=nodes,
             launch_calls={m: prof[m]["launch_calls"] for m in profiled},
-            graph_calls=prof["graph"]["graph_calls"],
+            graph_calls=g[0]["launched"],
             kernels={m: prof[m]["kernels"] for m in profiled},
-            busy={m: prof[m]["busy"] for m in profiled},
-            mem_peak_mb=(e[0]["mem"], g[0]["mem"]))
+            kernel_ms={m: prof[m]["kernel_ms"] for m in profiled},
+            busy_estimate=busy, mem_peak_mb=(e[0]["mem"], g[0]["mem"]))
     pools = graph_pools()
     print(f"  the graphs' private memory pools (reserved MB, from the allocator's snapshot): "
           f"{json.dumps(pools) if pools is not None else 'not measured (no pool ids)'}")
-    print(f"  phase 21 {time.perf_counter() - t_phase:.1f} s; summary {json.dumps(summary)}")
+    print(f"  phase 22 {time.perf_counter() - t_phase:.1f} s; summary {json.dumps(summary)}")
     return summary
 
 
+def path_caches(solver) -> list:
+    """The graph caches of a solver's discretizations (the grid's, the
+    tet vertex path's and the CR path's)."""
+    out = []
+    for cached in solver._impl._cache.values():
+        caches = [cached.get("graphs"), cached.get("vertex_graphs"),
+                  getattr(cached.get("cr_path"), "graphs", None)]
+        out += [c for c in caches if c]
+    return out
+
+
+def path_chunk_graphs(solver) -> list:
+    from shm3d_torch.solve import graphs
+
+    return [g for c in path_caches(solver) for g in c.values()
+            if isinstance(g, graphs.ChunkGraph)]
+
+
 def graph_pools():
-    """Reserved MB of each iteration graph's private memory pool, by path
-    and graph key, summed over the allocator's segments of that pool; None
-    when the allocator's snapshot is not available or names no pools."""
+    """Reserved MB of each graph's private memory pool, by path and graph
+    key (a Krylov solve's setup and chunk graphs share one), summed over
+    the allocator's segments of that pool; None when the allocator's
+    snapshot is not available or names no pools."""
     from shm3d_torch.solve import graphs
 
     try:  # a private API of torch's allocator: its absence is "not measured"
@@ -2843,17 +3181,22 @@ def graph_pools():
     for seg in segments:
         pool = tuple(seg["segment_pool_id"])
         by_pool[pool] = by_pool.get(pool, 0) + seg["total_size"]
+
+    def pool_of(g):
+        if isinstance(g, graphs.ChunkGraph):
+            return g.setup_graph.pool()
+        if isinstance(g, graphs.StageGraph):
+            return g.graph.pool()
+        return g.graphs[0].pool()
+
     out, seen = {}, set()
     for name, (solver, *_) in GRAPH_PATHS.items():
-        for cached in solver._impl._cache.values():
-            caches = [cached.get("graphs"), cached.get("vertex_graphs"),
-                      getattr(cached.get("cr_path"), "graphs", None)]
-            for cache in filter(None, caches):
-                for key, g in cache.items():
-                    if isinstance(g, graphs.IterationGraph) and id(g) not in seen:
-                        seen.add(id(g))
-                        pool = tuple(g.graphs[0].pool())
-                        out[f"{name}: {key}"] = round(by_pool.get(pool, 0) / 1e6, 1)
+        for cache in path_caches(solver):
+            for key, g in cache.items():
+                if isinstance(g, (graphs.IterationGraph, graphs.ChunkGraph, graphs.StageGraph)) \
+                        and id(g) not in seen:
+                    seen.add(id(g))
+                    out[f"{name}: {key}"] = round(by_pool.get(tuple(pool_of(g)), 0) / 1e6, 1)
     return out
 
 
@@ -2870,7 +3213,7 @@ def main() -> int:
     from shm3d_torch.ops import yukawa as yk
     from shm3d_torch.ops import yukawa_skeleton as ys
     from shm3d_torch.ops.farfield import DeviceShellPlan, _positions_of
-    from shm3d_torch.solve import ell, graphs, pell
+    from shm3d_torch.solve import ell, graphs, pell, stop
 
     check(os.path.dirname(os.path.abspath(shm3d_torch.__file__)) ==
           os.path.join(REPO, "shm3d_torch"), "shm3d_torch imported from this checkout")
@@ -2908,18 +3251,23 @@ def main() -> int:
                              disk_cache=False)
     solver = SignedHeatSolver("grid", device="cuda")
     yk.KERNEL_LAUNCHES = 0
+    stop.KERNEL_LAUNCHES = 0
+    stop.START_LAUNCHES = 0
     t0 = time.perf_counter()
     res = solver.compute_distance(geom, opts)
     torch.cuda.synchronize()
     cold_s = time.perf_counter() - t0
     cold_stats = dict(solver.last_stats)
-    warm = []
+    warm, reads = [], []
     for _ in range(3):
+        r0 = graphs.HOST_READS
         t0 = time.perf_counter()
         res = solver.compute_distance(geom, opts)
         torch.cuda.synchronize()
         warm.append(time.perf_counter() - t0)
+        reads.append(graphs.HOST_READS - r0)
     launches = yk.KERNEL_LAUNCHES
+    stop_launches, start_launches = stop.KERNEL_LAUNCHES, stop.START_LAUNCHES
     stats = solver.last_stats
     print(f"main path: sphere cloud S={N_POINTS}, grid {res.grid.n}^3, float32, "
           f"refine_steps=0, step1 auto")
@@ -2933,8 +3281,12 @@ def main() -> int:
           f"constraint rows m={m_rows}, tier {stats['tier']}, tform_eps {stats['tform_eps']}, "
           f"iters {stats['iters']}, rel_res {stats['rel_res']:.3e}, "
           f"mem_peak_mb {stats['mem_peak_mb']:.1f}")
-    print(f"  yukawa kernel launches during the 4 grid solves: {launches}")
+    print(f"  yukawa kernel launches during the 4 grid solves: {launches}; Krylov stop "
+          f"kernel launches {stop_launches}, chunk start kernel launches {start_launches}; "
+          f"host reads of the stop state a warm solve {reads}")
     check(launches > 0, "the main path launched the Yukawa kernel")
+    check(stop_launches > 0, "the main path launched the Krylov stop kernel")
+    check(start_launches > 0, "the main path launched the chunk start kernel")
     check(stats["step3_path"] == "projected-mg-pcg", "step 3 path")
     check(stats["tier"] == "full-row" and stats["tform_eps"] is not None,
           "full-row whitening tier at m > 8192")
@@ -2958,6 +3310,7 @@ def main() -> int:
           f"the main path repeats the eager loops' {EAGER_MAIN[0]} iterations and rel-L2 {EAGER_MAIN[1]}")
     check_no_jax_package()
     GRAPH_PATHS["sphere52k-128 fast tier"] = (solver, geom, opts, TURNS)
+    STOP_PATHS["sphere52k-128 fast tier, CG float32"] = (solver, geom, opts)
     GRAPH_PATHS["sphere52k-128 default tier"] = (solver, geom, opts.with_(refine_steps=1), TURNS)
 
     # --- the kernel at the main path's shapes --------------------------------
@@ -2969,7 +3322,7 @@ def main() -> int:
 
     # --- the default tier, the roofline, the paged kernel, the tet path -----
     profile_solve("warm fast-tier grid solve", lambda: solver.compute_distance(geom, opts),
-                  statistics.median(warm), smi, rounds=2)
+                  statistics.median(warm), smi, rounds=2, eager=True)
     tier1 = default_tier_phase(solver, geom, opts, phi, yk, smi)
     stamp("default tier")
     check_no_jax_package()
@@ -3014,6 +3367,8 @@ def main() -> int:
                                             phi_ref=tier1["phi_ref"]))
     stamp("float64 on the card")
     check_no_jax_package()
+    stop_entries = stop_kernel_phase(smi, dev, stop_launches, start_launches)
+    stamp("the Krylov stop kernel")
     graph_phase(smi)
     stamp("graphs against the eager loops")
     check_no_jax_package()
@@ -3104,7 +3459,7 @@ def main() -> int:
         "bound_by": "operations",
         "library_ms": None,
         "per_path": k1_f64["per_path"],
-    }, k3_entry]}))
+    }, k3_entry, *stop_entries]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

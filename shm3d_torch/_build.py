@@ -207,6 +207,21 @@ def load_library() -> ctypes.CDLL:
         ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p,
     ]
     lib.shm3d_sell_f32.restype = ctypes.c_int
+    ptr, cint, handle = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint64
+    for suffix in ("f32", "f64"):
+        fn = getattr(lib, f"shm3d_cg_stop_{suffix}")
+        fn.argtypes = [ptr, ptr, ptr, ptr, cint, handle, cint, cint, ptr]
+        fn.restype = cint
+        fn = getattr(lib, f"shm3d_minres_stop_{suffix}")
+        fn.argtypes = [ptr, ptr, ptr, ptr, ptr, cint, handle, cint, cint, ptr]
+        fn.restype = cint
+    for name, args in (("shm3d_chunk_graph_create", [ptr, ptr, cint]),
+                       ("shm3d_chunk_graph_build", [ptr, handle, ptr, ptr, cint, ptr]),
+                       ("shm3d_graph_launch", [ptr, ptr]),
+                       ("shm3d_chunk_graph_destroy", [ptr, ptr]),
+                       ("shm3d_graph_node_counts", [ptr, ptr, ptr])):
+        getattr(lib, name).argtypes = args
+        getattr(lib, name).restype = cint
     lib.shm3d_cuda_error_string.argtypes = [ctypes.c_int]
     lib.shm3d_cuda_error_string.restype = ctypes.c_char_p
     _LIB = lib

@@ -157,23 +157,31 @@ def build_shell_plan(
     )
 
 
+def interp_matrix(lo: torch.Tensor, w: torch.Tensor, n: int, m: int,
+                  dtype: torch.dtype) -> torch.Tensor:
+    """The (n, m) matrix of the per-axis linear interpolation: row i holds
+    1 - w[i] at lo[i] and w[i] at lo[i] + 1 (two distinct columns, so the
+    accumulation adds each to 0)."""
+    ar = torch.arange(n, device=lo.device)
+    W = torch.zeros((n, m), dtype=dtype, device=lo.device)
+    W.index_put_((ar, lo), (1.0 - w).to(dtype), accumulate=True)
+    W.index_put_((ar, lo + 1), w.to(dtype), accumulate=True)
+    return W
+
+
 def assemble_shell_field(
     Y_coarse: torch.Tensor,   # (m^3, 3) normalized directions at coarse nodes
     Y_shell: torch.Tensor,    # (Qs, 3) exact directions at shell nodes
     shell_idx: torch.Tensor,  # (Qs,) int64
-    lo: torch.Tensor,         # (n,) int64
-    w: torch.Tensor,          # (n,) float32
+    W: torch.Tensor,          # (n, m) interp_matrix of the plan's lo and w
     n: int,
     m: int,
 ) -> torch.Tensor:
     """Trilinear direction upsample + renormalize, then overwrite the shell
     rows with the exact kernel values.  Returns (n^3, 3) in flat node order.
-    The separable interpolation is three dense (n, m) products."""
+    The separable interpolation is three dense (n, m) products with ``W``
+    (``DeviceShellPlan`` builds it once)."""
     dtype = Y_coarse.dtype
-    ar = torch.arange(n, device=Y_coarse.device)
-    W = torch.zeros((n, m), dtype=dtype, device=Y_coarse.device)
-    W.index_put_((ar, lo), (1.0 - w).to(dtype), accumulate=True)
-    W.index_put_((ar, lo + 1), w.to(dtype), accumulate=True)
     Yc = Y_coarse.reshape(m, m, m, 3)
     up = torch.einsum("zi,ijkc->zjkc", W, Yc)
     up = torch.einsum("yj,zjkc->zykc", W, up)
@@ -197,6 +205,9 @@ class DeviceShellPlan:
         self.w = torch.as_tensor(plan.w, device=device)
         self.m = plan.m
         self.shell_fraction = plan.shell_fraction
+        # the interpolation matrix depends on the plan alone: built once,
+        # outside every solve (and its graph: index_put_'s accumulation sorts)
+        self.W = interp_matrix(self.lo, self.w, int(self.lo.shape[0]), self.m, dtype)
 
     @classmethod
     def from_arrays(cls, arrays: dict, device, dtype: torch.dtype) -> "DeviceShellPlan":
@@ -239,18 +250,21 @@ def yukawa_field_shell(
     lam,
     grid_n: int,
     mesh=None,
+    chunks=(None, None),
 ):
     """Shell-decomposed Steps 1-2: the Yukawa kernel on the coarse lattice
     and the shell nodes, then the interpolated assembly (n^3, 3).  With a
     ``mesh`` (shm3d_torch.parallel.device_mesh) both launches are split by
     rows over its shards (``_rowsharded``) and the field, bitwise equal to
-    the single-device one, is returned as its z-slabs (``Shards``)."""
+    the single-device one, is returned as its z-slabs (``Shards``).
+    ``chunks``: the kernel's source chunks of the coarse and the shell
+    launch on one device (``yukawa_chunk_len``, the default; given, the
+    call makes no occupancy query, as a CUDA graph's capture needs)."""
     if mesh is None:
-        Y_coarse = yukawa_field(plan.coarse_pos, src_points, src_vectors, lam)
-        Y_shell = yukawa_field(plan.shell_pos, src_points, src_vectors, lam)
+        Y_coarse = yukawa_field(plan.coarse_pos, src_points, src_vectors, lam, chunk=chunks[0])
+        Y_shell = yukawa_field(plan.shell_pos, src_points, src_vectors, lam, chunk=chunks[1])
     else:
         Y_coarse = _rowsharded(plan.coarse_pos, src_points, src_vectors, lam, mesh)
         Y_shell = _rowsharded(plan.shell_pos, src_points, src_vectors, lam, mesh)
-    Y = assemble_shell_field(Y_coarse, Y_shell, plan.shell_idx, plan.lo,
-                             plan.w, grid_n, plan.m)
+    Y = assemble_shell_field(Y_coarse, Y_shell, plan.shell_idx, plan.W, grid_n, plan.m)
     return Y if mesh is None else shard_rows(Y, mesh)

@@ -9,14 +9,16 @@ also takes the grid's KKT pairs (``solvers.grid.KKTPair``).  Anything with
 
 ``cg`` and ``minres`` are the eager loops: the plain version, which the
 CPU and the device mesh run.  ``cg_run`` and ``minres_run`` split the same
-loops into a setup (``cg_start``, ``minres_start``, the eager ops of the
-loop's first lines), an iteration body that reads and writes a fixed set
-of state tensors in place (``cg_body``, ``minres_body``: the loop body's
-ops in its order, then ``copy_`` into the state), and the same host stop
-test.  A ``runner`` (``graphs.runner``) holds the state and steps the body:
-on one CUDA device one replay of a CUDA graph an iteration, so the results
-are the eager loop's bit for bit.  Vectors there also need ``clone`` and
-``copy_``.
+loops into device programs, shm3d's ``while_loop`` on one card: a setup
+(``cg_start``, ``minres_start``: the loop's first lines and rhs_mnorm, then
+the stop state's start), and an iteration body that reads and writes a
+fixed set of state tensors in place (``cg_body``, ``minres_body``: the
+loop body's ops in its order, then ``copy_`` into the state) and ends in
+the stop test on the device (``solve.stop``, the host test's arithmetic).
+A ``runner`` (``graphs.runner``) holds the state and runs them: on one
+CUDA device a setup graph and the bodies under conditional nodes until the
+stop, the stop state read once a solve, so the results are the eager
+loop's bit for bit.  Vectors there also need ``clone`` and ``copy_``.
 """
 
 from __future__ import annotations
@@ -26,6 +28,8 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from . import stop
+
 
 class SolveResult(NamedTuple):
     x: torch.Tensor
@@ -33,6 +37,9 @@ class SolveResult(NamedTuple):
     # cg: the final preconditioned residual norm sqrt(|r^T M r|); minres:
     # its estimate phibar
     residual: float
+    # cg: ||b||_M, the norm its threshold is relative to (the caller's
+    # rhs_mnorm, or computed); minres: None
+    rhs_mnorm: Optional[float] = None
 
 
 def dot(a, b) -> torch.Tensor:
@@ -87,7 +94,7 @@ def cg(
         since = 0 if rn < 0.98 * best else since + 1
         best = min(best, rn)
         k += 1
-    return SolveResult(x, k, rn)
+    return SolveResult(x, k, rn, rhs_mnorm)
 
 
 def minres(
@@ -158,17 +165,34 @@ def minres(
     return SolveResult(x, k, phibar_h)
 
 
-# --- the loops as setup, in-place body and host stop test -------------------
+# --- the loops as device programs: setup, in-place body, device stop test --
 
 
-def cg_start(matvec, b, x0, M) -> dict:
+def _chunked(runner, inputs: dict, setup, start, make_bodies, params, variant):
+    """Run a solve on ``runner``'s stepper; returns (stepper, the stop state
+    as floats).  A stepper whose first solve (its build) raised is not
+    kept."""
+    stepper = runner.get(setup, start, make_bodies, variant=variant)
+    built = stepper.state is not None
+    try:
+        return stepper, stepper.solve(inputs, params, variant=variant)
+    except Exception:
+        if not built:
+            runner.cache.pop(runner.key, None)
+        raise
+
+
+def cg_start(matvec, b, x0, M, rhs: bool = True) -> dict:
     """``cg``'s setup: the state x, r, z, p and rz before its first
     iteration (p is z; the runner copies the state into buffers of its
-    own)."""
+    own) and, with ``rhs``, bmb = b . M b, whose root is rhs_mnorm."""
     x = zeros_like(b) if x0 is None else x0
     r = b - matvec(x)
     z = M(r)
-    return dict(x=x, r=r, z=z, p=z, rz=dot(r, z))
+    state = dict(x=x, r=r, z=z, p=z, rz=dot(r, z))
+    if rhs:
+        state["bmb"] = dot(b, M(b))
+    return state
 
 
 def cg_body(matvec, M, s: dict) -> None:
@@ -195,51 +219,56 @@ def cg_run(
     rhs_mnorm: Optional[float] = None,
     stall_window: Optional[int] = None,
     runner=None,
+    prep: Optional[Callable] = None,
 ) -> SolveResult:
-    """``cg`` with its iteration stepped by ``runner`` (``graphs.runner``:
-    a CUDA graph of ``cg_body`` replayed once an iteration); ``runner``
-    None runs the eager ``cg``.  The same stop test, the same results."""
+    """``cg`` on ``prep(b)`` (``prep`` None: b) as device programs on
+    ``runner`` (``graphs.runner``: the setup graph, then ``cg_body`` under a
+    WHILE node on the device stop test, ``stop.cg_stop``); ``runner``
+    None runs the eager ``cg``.  The same stop test, the same results; on
+    the runner ``prep`` and rhs_mnorm run inside the setup."""
     if runner is None:
+        b = b if prep is None else prep(b)
         return cg(matvec, b, x0=x0, precond=precond, tol=tol, maxiter=maxiter,
                   rhs_mnorm=rhs_mnorm, stall_window=stall_window)
     M = precond if precond is not None else (lambda r: r)
-    init = cg_start(matvec, b, x0, M)
-    if rhs_mnorm is None:
-        rhs_mnorm = math.sqrt(abs(float(dot(b, M(b)))))
-    threshold = tol * max(rhs_mnorm, torch.finfo(b.dtype).tiny)
+    dtype = b.dtype
     window = maxiter + 1 if stall_window is None else stall_window
-    rn = math.sqrt(abs(float(init["rz"])))
-    stepper = runner(init, lambda s: (lambda: cg_body(matvec, M, s),))
-    s = stepper.state
-    best, since, k = rn, 0, 0
-    while rn > threshold and k < maxiter and since < window:
-        stepper.step(0)
-        rn = math.sqrt(abs(float(s["rz"])))  # the one host sync per iteration
-        since = 0 if rn < 0.98 * best else since + 1
-        best = min(best, rn)
-        k += 1
-    return SolveResult(s["x"].clone(), k, rn)
+    inputs = {"b": b} if x0 is None else {"b": b, "x0": x0}
+
+    def setup(i):
+        bb = i["b"] if prep is None else prep(i["b"])
+        return cg_start(matvec, bb, i.get("x0"), M, rhs=rhs_mnorm is None)
+
+    def start(s):
+        stop.cg_stop(s["rz"], s.get("bmb"), s["stop"], s["go"], start=True)
+
+    def make_bodies(s):
+        def body():
+            cg_body(matvec, M, s)
+            stop.cg_stop(s["rz"], None, s["stop"], s["go"])
+        return (body,)
+
+    params = stop.params(tol, maxiter, window, torch.finfo(dtype).tiny,
+                         None if rhs_mnorm is None else float(rhs_mnorm))
+    stepper, host = _chunked(runner, inputs, setup, start, make_bodies, params,
+                             ("cg", x0 is not None, rhs_mnorm is not None, prep is not None))
+    return SolveResult(stepper.state["x"].clone(), int(host[stop.K]), host[stop.RN],
+                       host[stop.RHS])
 
 
-def minres_start(matvec, b, x0, M, tol: float, rhs_mnorm=None):
-    """``minres``'s setup: (the state before its first iteration, the stop
-    threshold, eps).  The state holds the vectors x, r1, r2, y, w, w2, the
-    0-dim scalars oldb, beta, dbar, epsln, phibar, cs, sn, and ``stop``,
-    (phibar, beta) for the host's stop test."""
+def minres_start(matvec, b, x0, M, ref=None) -> dict:
+    """``minres``'s setup: the state before its first iteration, the
+    vectors x, r1, r2, y, w, w2 and the 0-dim scalars oldb, beta, dbar,
+    epsln, phibar, cs, sn, and ``ref``, the threshold's reference norm
+    (``ref`` given, or else beta1)."""
     x = zeros_like(b) if x0 is None else x0
     r1 = b - matvec(x)
     y = M(r1)
     beta1 = torch.sqrt(torch.abs(dot(r1, y)))
-    dtype = beta1.dtype
-    eps = torch.finfo(dtype).eps
-    ref = beta1 if rhs_mnorm is None else torch.as_tensor(rhs_mnorm, dtype=dtype,
-                                                          device=beta1.device)
-    threshold = float(tol * torch.clamp_min(ref, torch.finfo(dtype).tiny))
     zero = beta1.new_zeros(())
-    state = dict(x=x, r1=r1, r2=r1, y=y, w=zeros_like(b), w2=zeros_like(b),
-                 oldb=zero, beta=beta1, dbar=zero, epsln=zero, phibar=beta1,
-                 cs=beta1.new_full((), -1.0), sn=zero, stop=torch.stack([beta1, beta1]))
-    return state, threshold, eps
+    return dict(x=x, r1=r1, r2=r1, y=y, w=zeros_like(b), w2=zeros_like(b),
+                oldb=zero, beta=beta1, dbar=zero, epsln=zero, phibar=beta1,
+                cs=beta1.new_full((), -1.0), sn=zero, ref=beta1 if ref is None else ref)
 
 
 def minres_body(matvec, M, s: dict, first: bool, eps: float) -> None:
@@ -269,11 +298,10 @@ def minres_body(matvec, M, s: dict, first: bool, eps: float) -> None:
 
     w = (v - s["epsln"] * s["w2"] - delta * s["w"]) / gamma
     x = s["x"] + phi * w
-    stop = torch.stack([phibar, beta])
     for k, src in (("r1", s["r2"]), ("r2", r2), ("w2", s["w"]), ("w", w),
                    ("oldb", s["beta"]), ("beta", beta), ("x", x), ("y", y),
                    ("epsln", epsln), ("dbar", dbar), ("cs", cs), ("sn", sn),
-                   ("phibar", phibar), ("stop", stop)):
+                   ("phibar", phibar)):
         s[k].copy_(src)
 
 
@@ -286,23 +314,46 @@ def minres_run(
     maxiter: int = 2000,
     rhs_mnorm=None,
     runner=None,
+    prep: Optional[Callable] = None,
 ) -> SolveResult:
-    """``minres`` with its iteration stepped by ``runner`` (two CUDA graphs
-    of ``minres_body``: iteration 0 and the rest, one replay an iteration);
-    ``runner`` None runs the eager ``minres``.  The same stop test, the same
-    results."""
+    """``minres`` on ``prep(b)`` as device programs on ``runner`` (the setup
+    graph, then ``minres_body``'s iteration 0 under an IF node and the rest
+    under a WHILE node, on the device stop test, ``stop.minres_stop``);
+    ``runner`` None runs the eager ``minres``.  ``rhs_mnorm``: None (the
+    first residual's norm), a number or 0-dim tensor, or a function of the
+    right-hand side computing it (inside the setup on the runner).  The
+    same stop test, the same results."""
     if runner is None:
+        b = b if prep is None else prep(b)
+        if callable(rhs_mnorm):
+            rhs_mnorm = rhs_mnorm(b)
         return minres(matvec, b, x0=x0, precond=precond, tol=tol, maxiter=maxiter,
                       rhs_mnorm=rhs_mnorm)
     M = precond if precond is not None else (lambda r: r)
-    init, threshold, eps = minres_start(matvec, b, x0, M, tol, rhs_mnorm)
-    stepper = runner(init, lambda s: (lambda: minres_body(matvec, M, s, True, eps),
-                                      lambda: minres_body(matvec, M, s, False, eps)))
-    s = stepper.state
-    k = 0
-    phibar_h, beta_h = s["stop"].tolist()
-    while phibar_h > threshold and k < maxiter and beta_h > 0:
-        stepper.step(0 if k == 0 else 1)
-        k += 1
-        phibar_h, beta_h = s["stop"].tolist()  # the one host sync
-    return SolveResult(s["x"].clone(), k, phibar_h)
+    inputs = {"b": b} if x0 is None else {"b": b, "x0": x0}
+    given = rhs_mnorm is not None and not callable(rhs_mnorm)
+    probe = b if isinstance(b, torch.Tensor) else b.u
+    dtype = probe.dtype
+    if given:
+        inputs["ref"] = torch.as_tensor(rhs_mnorm, dtype=dtype, device=probe.device)
+    eps = torch.finfo(dtype).eps
+
+    def setup(i):
+        bb = i["b"] if prep is None else prep(i["b"])
+        ref = i["ref"] if given else (rhs_mnorm(bb) if callable(rhs_mnorm) else None)
+        return minres_start(matvec, bb, i.get("x0"), M, ref)
+
+    def start(s):
+        stop.minres_stop(s["phibar"], s["beta"], s["ref"], s["stop"], s["go"], start=True)
+
+    def make_bodies(s):
+        def body(first):
+            minres_body(matvec, M, s, first, eps)
+            stop.minres_stop(s["phibar"], s["beta"], None, s["stop"], s["go"])
+        return (lambda: body(True), lambda: body(False))
+
+    params = stop.params(tol, maxiter, 0, torch.finfo(dtype).tiny)
+    variant = ("minres", x0 is not None, "given" if given else callable(rhs_mnorm),
+               prep is not None)
+    stepper, host = _chunked(runner, inputs, setup, start, make_bodies, params, variant)
+    return SolveResult(stepper.state["x"].clone(), int(host[stop.K]), host[stop.RN])

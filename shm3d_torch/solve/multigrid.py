@@ -42,10 +42,16 @@ def _coarse_pinv_unit(n: int) -> np.ndarray:
     return (Q * inv) @ Q.T
 
 
-@functools.lru_cache(maxsize=8)
+@functools.lru_cache(maxsize=None)
 def _coarse_pinv(n: int, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
-    """``_coarse_pinv_unit`` resident on ``device`` (copied there once)."""
-    return torch.as_tensor(_coarse_pinv_unit(n), dtype=dtype, device=device)
+    """``_coarse_pinv_unit`` resident on ``device`` (copied there once; to a
+    card from pinned memory without a host sync, so a first V-cycle may run
+    in a CUDA graph's warm-up, where a sync raises).  Never evicted: a CUDA
+    graph that captured a V-cycle reads it by address."""
+    host = torch.as_tensor(_coarse_pinv_unit(n), dtype=dtype)
+    if torch.device(device).type != "cuda":
+        return host.to(device)
+    return host.pin_memory().to(device, non_blocking=True)
 
 
 def _Hp_apply(u, cell, w):

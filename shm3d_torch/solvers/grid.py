@@ -66,7 +66,7 @@ from .._device import resolve_device, synchronize, torch_dtype
 from .._inputs import check_inputs
 from ..ops import farfield, stencil
 from ..ops.wavefront import greedy_integrate_wavefront
-from ..ops.yukawa import yukawa_field
+from ..ops.yukawa import yukawa_chunk_len, yukawa_field
 from ..oracle.reference import integrate_greedily_grid
 from ..parallel import slab
 from ..parallel.ring import yukawa_field_ring
@@ -173,9 +173,10 @@ def _solve_pinned(b, nodes8, coeffs8, gram, at, cell_size: float, shape, tol: fl
     unprojected residual builds wrong search directions.  A Gram table
     with neither factor takes the host-projected loop (``host_gram``: the
     host factor of these rows; ``stats`` its counters).  ``graphs``: the
-    discretization's dict of iteration graphs (``solve.graphs``); on one
-    CUDA device each iteration is one replay of the graph kept there (three
-    on the host-projected loop)."""
+    discretization's dict of graphs (``solve.graphs``); on one CUDA device
+    the solve is the setup graph and the chunk graph of its loop kept there
+    (``krylov.cg_run``; the host-projected loop three graphs an
+    iteration)."""
     if gram.bmat is None and gram.tmat is None:
         return _solve_pinned_hostproj(b, nodes8, coeffs8, at, host_gram, cell_size,
                                       shape, tol, maxiter, stats, graphs)
@@ -190,12 +191,11 @@ def _solve_pinned(b, nodes8, coeffs8, gram, at, cell_size: float, shape, tol: fl
     def precond(r):
         return proj(mg(r))
 
-    Pb = proj(b)
-    rhs_mnorm = math.sqrt(abs(float(krylov.dot(Pb, precond(Pb)))))
-    res = krylov.cg_run(matvec, Pb, precond=precond, tol=tol, maxiter=maxiter,
-                        rhs_mnorm=rhs_mnorm, stall_window=60,
-                        runner=graph_mod.runner(graphs, ("projected-cg", shape, b.dtype), Pb))
-    rel = res.residual / max(rhs_mnorm, torch.finfo(b.dtype).tiny)
+    # P b and ||P b||_M inside the setup (on one card its graph)
+    res = krylov.cg_run(matvec, b, precond=precond, tol=tol, maxiter=maxiter,
+                        stall_window=60, prep=proj,
+                        runner=graph_mod.runner(graphs, ("projected-cg", shape, b.dtype), b))
+    rel = res.residual / max(res.rhs_mnorm, torch.finfo(b.dtype).tiny)
     return res.x, res.iterations, rel
 
 
@@ -254,7 +254,8 @@ def _solve_kkt_minres(b, nodes8, coeffs8: torch.Tensor, at, cell_size: float, sh
     TPU, where its chunk is ``maxiter``).  Block-diagonal preconditioner:
     one V-cycle without pin masks on u, and mu over the Schur diagonal
     estimate sum_j c_j^2 / diag(H)[node_j].  Returns (u, iterations, final
-    phibar).  ``graphs`` as in ``_solve_pinned``."""
+    phibar).  ``graphs`` as in ``_solve_pinned``: on one CUDA device a
+    setup graph and the chunk graphs of iteration 0 and the loop."""
     diag_H = -stencil.laplacian_diagonal(shape, cell_size, b.dtype, b.device).reshape(-1)
     if isinstance(b, Shards):
         diag_rows = nodes8.values(shard_rows(diag_H, b.mesh))
@@ -269,11 +270,13 @@ def _solve_kkt_minres(b, nodes8, coeffs8: torch.Tensor, at, cell_size: float, sh
     def precond(r):
         return KKTPair(mg(r.u), r.mu / diag_S)
 
-    rhs = KKTPair(b, coeffs8.new_zeros(coeffs8.shape[0]))
-    rhs_mnorm = torch.sqrt(torch.abs(krylov.dot(rhs, precond(rhs))))
-    res = krylov.minres_run(matvec, rhs, precond=precond, tol=tol, maxiter=maxiter,
-                            rhs_mnorm=rhs_mnorm,
-                            runner=graph_mod.runner(graphs, ("minres-kkt", shape, b.dtype), rhs))
+    # the rhs (b, 0) and its preconditioned norm inside the setup (on one
+    # card its graph)
+    res = krylov.minres_run(matvec, b, precond=precond, tol=tol, maxiter=maxiter,
+                            rhs_mnorm=lambda rhs: torch.sqrt(torch.abs(krylov.dot(
+                                rhs, precond(rhs)))),
+                            prep=lambda u: KKTPair(u, coeffs8.new_zeros(coeffs8.shape[0])),
+                            runner=graph_mod.runner(graphs, ("minres-kkt", shape, b.dtype), b))
     return res.x.u, res.iterations, res.residual
 
 
@@ -628,14 +631,22 @@ class GridSolver:
                 options.step1_method == "shell"
                 or (options.step1_method == "auto" and grid.n >= options.shell_auto_n)
             )
+            pts, vecs = cached["points"], cached["vectors"]
             if use_shell:
                 plan = self._shell_plan(cached, key, lam, options)
                 tm.note(f"shell decomposition: {plan.shell_fraction:.1%} exact "
                         f"nodes + {plan.m}^3 coarse lattice")
                 self.last_stats["shell_nodes"] = int(plan.shell_idx.shape[0])
                 self.last_stats["coarse_nodes"] = int(plan.coarse_pos.shape[0])
-                Y = farfield.yukawa_field_shell(
-                    plan, cached["points"], cached["vectors"], lam, grid.n, mesh=mesh)
+                # K1's source chunks queried before the stage is captured
+                chunks = (None, None) if mesh is not None else (
+                    self._chunk_len(plan.coarse_pos, pts), self._chunk_len(plan.shell_pos, pts))
+                Y = self._stage(
+                    cached, ("steps 1-2", "shell", lam, options.shell_t,
+                             options.shell_coarse_factor, dtype),
+                    lambda: farfield.yukawa_field_shell(plan, pts, vecs, lam, grid.n,
+                                                        mesh=mesh, chunks=chunks),
+                    eager=mesh is not None)
             elif mesh is not None:
                 queries = cached.get("slab_queries")
                 if queries is None:
@@ -649,7 +660,9 @@ class GridSolver:
                     queries = _node_positions_device(
                         grid.bbox_min, cell, grid.n, dtype, self.device)
                     cached["queries"] = queries
-                Y = yukawa_field(queries, cached["points"], cached["vectors"], lam)
+                chunk = self._chunk_len(queries, pts)
+                Y = self._stage(cached, ("steps 1-2", "dense", lam, dtype),
+                                lambda: yukawa_field(queries, pts, vecs, lam, chunk=chunk))
             # unit rows except where a node lies on a source (the divergence
             # guard zeroes those)
             checks.check_unit_field("grid Step 2 field", Y)
@@ -667,11 +680,14 @@ class GridSolver:
                 u = self._refine_or_skip(u, Y, c, grid, is_mesh, options, tm)
             if mesh is not None:
                 u, Y = u.gather(), Y.gather()
-            phi = -u
+            phi = u  # phi = -u, negated in the mean shift's stage
 
         with tm.phase("mean shift along source"):
-            phi = _mean_shift(phi, cached["src_nodes8"], cached["src_coeffs8"],
-                              cached["weights"])
+            negate = u is not None
+            phi = self._stage(cached, ("mean shift", negate, grid.shape, phi.dtype),
+                              lambda v: _mean_shift(-v if negate else v, cached["src_nodes8"],
+                                                    cached["src_coeffs8"], cached["weights"]),
+                              phi, eager=mesh is not None)
         checks.check_finite("grid phi", phi)
 
         self.last_stats["phases"] = tm.as_dict()
@@ -681,6 +697,22 @@ class GridSolver:
             self.last_stats["mem_peak_mb"] = (
                 torch.cuda.max_memory_allocated(self.device) / 1e6)
         return GridResult(phi, grid, Y, u_dev=u)
+
+    def _stage(self, cached, key, fn, *inputs, eager: bool = False):
+        """``fn(*inputs)``: on one CUDA device one replay of the stage graph
+        kept in the discretization's graphs under ``key`` (the first call
+        runs it and captures it; ``solve.graphs.StageGraph``), else (the
+        CPU, z-slabs, a mesh: ``eager``) the function itself."""
+        run = None if eager else graph_mod.stage_runner(_graphs(cached), key, self.device)
+        return fn(*inputs) if run is None else run.get(fn)(*inputs)
+
+    def _chunk_len(self, queries, points) -> Optional[int]:
+        """K1's source chunk for this launch on a CUDA device (None on the
+        CPU): queried outside the stage graphs, passed in as ``chunk``."""
+        if queries.device.type != "cuda":
+            return None
+        return yukawa_chunk_len(queries.shape[0], points.shape[0], queries.device,
+                                queries.dtype)
 
     def _use_mesh(self, grid, tm) -> Optional[DeviceMesh]:
         """The mesh this grid is solved on, or None: no mesh, or a grid whose
@@ -760,7 +792,9 @@ class GridSolver:
                     # relative, shm3d's measurement): iterating past 1e-4
                     # is wasted work
                     tol = max(tol, 1e-4)
-            b = -_rhs_div(Y, cell, grid.shape, is_mesh)
+            b = self._stage(cached, ("divergence", grid.shape, is_mesh, Y.dtype),
+                            lambda v: -_rhs_div(v, cell, grid.shape, is_mesh), Y,
+                            eager=isinstance(Y, Shards))
             if minres:
                 # resid: the absolute phibar, as shm3d records it
                 u, iters, resid = _solve_kkt_minres(

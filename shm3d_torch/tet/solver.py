@@ -176,14 +176,15 @@ def _mg_or_jacobi(h, diag, matvec0=None):
 def _pcg(matvec, b, x0, precond, tol, maxiter, graph=None):
     """Preconditioned CG stopped relative to ||b|| in the preconditioner's
     norm, with the dtype's stall window; returns (x, iterations, relative
-    residual in that norm).  ``graph``: (dict, key) of the CUDA graph of the
-    iteration (``solve.graphs``), kept beside the operator and hierarchy it
-    reads; on one CUDA device each iteration is one replay of it."""
-    rhs_mnorm = math.sqrt(abs(float(torch.dot(b, precond(b)))))
+    residual in that norm).  ``graph``: (dict, key) of the CUDA graphs of
+    the solve (``solve.graphs``), kept beside the operator and hierarchy
+    they read; on one CUDA device the solve is their setup graph (||b||_M
+    inside) and the chunk graph of its loop."""
     res = krylov.cg_run(matvec, b, x0=x0, precond=precond, tol=tol, maxiter=maxiter,
-                        rhs_mnorm=rhs_mnorm, stall_window=_stall_window(b.dtype),
+                        stall_window=_stall_window(b.dtype),
                         runner=None if graph is None else graphs.runner(*graph, b))
-    return res.x, res.iterations, res.residual / max(rhs_mnorm, torch.finfo(b.dtype).tiny)
+    return (res.x, res.iterations,
+            res.residual / max(res.rhs_mnorm, torch.finfo(b.dtype).tiny))
 
 
 def _group_projector(group_elems, group_ids, group_winv, n_groups: int,

@@ -1,9 +1,10 @@
-"""The Krylov loops as setup, in-place iteration body and host stop test
+"""The Krylov loops as setup, in-place iteration body and stop test
 (``shm3d_torch.solve.krylov.cg_run`` / ``minres_run``) and their CUDA graphs
 (``shm3d_torch.solve.graphs``).
 
-On the CPU the body runs step by step through ``InPlace``, the
-stand-in for a graph, kept in the same caches as the graphs are:
+On the CPU the setup and the bodies run through ``InPlace``, the stand-in
+for a ``ChunkGraph`` (``tests/torch_chunks.py``), kept in the same caches
+as the graphs are:
 
 - on small dense systems, ``cg_run`` and ``minres_run`` give ``cg``'s and
   ``minres``'s x, iterations and residual bit for bit (the same ops in the
@@ -46,6 +47,7 @@ from shm3d_torch.parallel.shards import shard_rows
 from shm3d_torch.solve import graphs, krylov, pell, projection
 from shm3d_torch.solvers import grid as tgrid
 from shm3d_torch.tet.solver import SignedHeatTetSolver
+from torch_chunks import EmulatedChunks
 from torch_interop import jax_geom, jax_options
 
 torch.set_num_threads(2)
@@ -61,26 +63,16 @@ def _rel(a, b):
     return float(np.linalg.norm(a - b) / np.linalg.norm(b))
 
 
-class InPlace:
-    """A Krylov loop's iteration bodies called in place on state buffers of
-    their own, no capture (every step launches what its body launches):
-    ``graphs.IterationGraph``'s interface on the CPU."""
-
-    def __init__(self, init: dict, make_bodies):
-        self.state = {k: v.clone() for k, v in init.items()}
-        self.bodies = make_bodies(self.state)
-
-    def load(self, init: dict) -> None:
-        for k, v in init.items():
-            self.state[k].copy_(v)
-
-    def step(self, i: int = 0) -> None:
-        self.bodies[i]()
+class InPlace(EmulatedChunks):
+    """A Krylov solve's setup and iteration bodies called in place on state
+    buffers of their own, no capture, each only while the stop predicate
+    holds: ``graphs.ChunkGraph``'s interface on the CPU
+    (``tests/torch_chunks.py``)."""
 
 
 def _stand_in(cache, key, b):
-    """``graphs.runner`` for CPU vectors: the in-place body, kept in the
-    cache as the graph is on a card (None for z-slabs or no cache)."""
+    """``graphs.runner`` for CPU vectors: the in-place bodies, kept in the
+    cache as the graphs are on a card (None for z-slabs or no cache)."""
     if cache is None or not isinstance(getattr(b, "u", b), torch.Tensor):
         return None
     return graphs.Cached(cache, key, InPlace)
@@ -381,12 +373,9 @@ def cuda_device():
 
 @contextlib.contextmanager
 def eager_loops():
-    saved = graphs.runner
-    graphs.runner = lambda cache, key, b: None
-    try:
+    with patched([(graphs, "runner", lambda *args, **kw: None),
+                  (graphs, "stage_runner", lambda *args, **kw: None)]):
         yield
-    finally:
-        graphs.runner = saved
 
 
 CUDA_CASES = ["grid_bmat_f64", "grid_full_row_f32", "grid_default_f32", "grid_minres_f32",
@@ -446,4 +435,4 @@ def test_cuda_capture_of_a_host_sync_raises(cuda_device):
         krylov.cg_run(matvec, b, precond=lambda r: r / d, tol=1e-10, maxiter=50,
                       runner=graphs.runner(cache, "k", b))
     assert cache == {}
-    assert len(calls) == 1  # the setup's matvec ran; the loop never did
+    assert calls == []  # the setup runs under the sync check too: it raised there

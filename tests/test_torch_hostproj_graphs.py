@@ -40,18 +40,29 @@ from shm3d_torch.geometry.procedural import make_icosphere, make_sphere_cloud
 from shm3d_torch.ops import wavefront
 from shm3d_torch.solve import graphs, multigrid, projection
 from shm3d_torch.solvers import grid as tgrid
-from test_torch_graphs import InPlace
+from test_torch_graphs import _stand_in as chunk_stand_in
 
 torch.set_num_threads(2)
 
 
-class Segmented(InPlace):
-    """``InPlace`` with the exchange buffers of a segmented stepper: the
-    state is on the host already, so ``read`` and ``write`` are copies."""
+class Segmented:
+    """A loop's bodies called in place on state buffers of their own, no
+    capture (every step launches what its body launches), with the exchange
+    buffers of a segmented stepper: ``graphs.IterationGraph``'s interface
+    on the CPU.  The state is on the host already, so ``read`` and
+    ``write`` are copies."""
 
     def __init__(self, init: dict, make_bodies, exchange=()):
-        super().__init__(init, make_bodies)
+        self.state = {k: v.clone() for k, v in init.items()}
+        self.bodies = make_bodies(self.state)
         self.exchange = tuple(exchange)
+
+    def load(self, init: dict) -> None:
+        for k, v in init.items():
+            self.state[k].copy_(v)
+
+    def step(self, i: int = 0) -> None:
+        self.bodies[i]()
 
     def read(self, name: str) -> torch.Tensor:
         assert name in self.exchange
@@ -70,11 +81,12 @@ def _stand_in(cache, key, b):
 
 @contextlib.contextmanager
 def stand_ins():
-    """The three runners give the stand-in stepper for CPU tensors."""
+    """The three runners give the stand-in steppers for CPU tensors (the
+    Krylov loops ``test_torch_graphs``'s chunk stand-in)."""
     names = ("runner", "hostproj_runner", "wavefront_runner")
     saved = [getattr(graphs, n) for n in names]
-    for n in names:
-        setattr(graphs, n, _stand_in)
+    for n, f in zip(names, (chunk_stand_in, _stand_in, _stand_in)):
+        setattr(graphs, n, f)
     try:
         yield
     finally:
@@ -340,10 +352,10 @@ def cuda_device():
 
 @contextlib.contextmanager
 def eager_loops():
-    names = ("runner", "hostproj_runner", "wavefront_runner")
+    names = ("runner", "stage_runner", "hostproj_runner", "wavefront_runner")
     saved = [getattr(graphs, n) for n in names]
     for n in names:
-        setattr(graphs, n, lambda cache, key, b: None)
+        setattr(graphs, n, lambda *args, **kw: None)
     try:
         yield
     finally:
@@ -375,6 +387,12 @@ def test_cuda_graphed_loop_matches_eager_bitwise(cuda_device, host_tier, loop):
     assert np.array_equal(g1, ephi) and np.array_equal(g2, ephi)
     assert s1 == est and s2 == est
     cached = next(iter(ts._cache.values()))
-    (key, stepper), = cached["graphs"].items()
+    (key, stepper), = [(k, g) for k, g in cached["graphs"].items()
+                       if not isinstance(g, graphs.StageGraph)]
     assert key[0] == loop and isinstance(stepper, graphs.IterationGraph)
+    # the grid's stages beside the loop: Steps 1-2, the mean shift and, on
+    # the exact path, the divergence
+    stages = sorted(k[0] for k, g in cached["graphs"].items() if isinstance(g, graphs.StageGraph))
+    assert stages == (["divergence", "mean shift", "steps 1-2"] if loop == "host-projected"
+                      else ["mean shift", "steps 1-2"])
     assert sorted(stepper.host) == (["a1", "a2", "z1", "z2"] if loop == "host-projected" else [])
