@@ -779,7 +779,7 @@ def tet_phase(smi, dev, ceiling):
     for k, r in enumerate(runs):
         st = r["stats"]
         print(f"  solve {k}: {r['s']:.3f} s, sliced-ELL kernel launches {r['k2']}, "
-              f"face iters {st['iters']} (chunks {st['chunks']}), f64 residual "
+              f"face iters {st['iters']} (solves {device_solves(st)}), f64 residual "
               f"passes {st['refine_pass_rels']}, projection iters {st['proj_iters']}, "
               f"residual passes {st['proj_refine_pass_rels']}")
     print(f"  face iterations {stats['iters']}, final f64 face residual "
@@ -912,12 +912,39 @@ def timed_solves(solver, geom, opts, n, yk, pell):
     return runs, res
 
 
+def device_solves(st) -> list:
+    """Each Krylov solve of a solve, from its spans: iterations and seconds."""
+    return [{"iters": dict(a)["iters"], "s": round((t1 - t0) / 1e9, 3)}
+            for name, _, _, t0, t1, a in st.get("spans", ())
+            if name.endswith("solve") and "iters" in dict(a)]
+
+
+def span_s(st, name: str, under: str = None) -> tuple:
+    """(occurrences, seconds) of the spans called ``name`` in a solve (a
+    tally's count and total); with ``under``, only those inside the first
+    span of that name."""
+    spans = st.get("spans", ())
+    top = next((i for i, x in enumerate(spans) if x[0] == under), None)
+    n, ns = 0, 0
+    for sname, parent, _, t0, t1, a in spans:
+        if under is not None:
+            while parent > top:
+                parent = spans[parent][1]
+            if parent != top:
+                continue
+        if sname == name:
+            a = dict(a)
+            n += a.get("count", 1)
+            ns += a.get("total_ns", t1 - t0)
+    return n, ns / 1e9
+
+
 def print_solves(runs):
     for k, r in enumerate(runs):
         st = r["stats"]
         print(f"  solve {k} ({'cold' if k == 0 else 'warm'}): {r['s']:.3f} s, yukawa launches "
-              f"{r['k1']}, sliced-ELL launches {r['k2']}, iters {st['iters']} (chunks "
-              f"{st['chunks']}), f64 residual passes {st['refine_pass_rels']}, "
+              f"{r['k1']}, sliced-ELL launches {r['k2']}, iters {st['iters']} (solves "
+              f"{device_solves(st)}), f64 residual passes {st['refine_pass_rels']}, "
               f"mem_peak_mb {st['mem_peak_mb']:.1f}, phases {json.dumps(st['phases'])}")
 
 
@@ -1231,7 +1258,7 @@ def default_tier_phase(solver, geom, opts, phi_fast, yk, smi):
         print(f"  solve {k} ({'cold' if k == 0 else 'warm'}): {r['s']:.4f} s, yukawa "
               f"launches {r['k1']}, refine_pass_rels {st.get('refine_pass_rels')}, "
               f"refine_rel_res {st.get('refine_rel_res')}, correction_iters "
-              f"{st.get('correction_iters')}, refine_detail {st.get('refine_detail')}, "
+              f"{st.get('correction_iters')}, Gram LU solves {span_s(st, 'Gram lu.solve')}, "
               f"phases {json.dumps(st['phases'])}")
     warm = [r["s"] for r in runs[1:]]
     print(f"  warm default-tier solves {[round(w, 4) for w in warm]} s, median "
@@ -1770,8 +1797,8 @@ def print_grid_solves(what, runs):
         print(f"  {what} solve {k} ({'cold' if k == 0 else 'warm'}): {r['s']:.4f} s, tier "
               f"{st['tier']}, yukawa launches {r['k1']}, iters {st.get('iters')}, rel_res "
               f"{st.get('rel_res')}, refine_pass_rels {st.get('refine_pass_rels')}, "
-              f"correction_iters {st.get('correction_iters')}, refine_detail "
-              f"{st.get('refine_detail')}, host_loop {st.get('host_loop')}, correction_host_loop "
+              f"correction_iters {st.get('correction_iters')}, Gram LU solves "
+              f"{span_s(st, 'Gram lu.solve')}, host_loop {st.get('host_loop')}, correction_host_loop "
               f"{st.get('correction_host_loop')}, mem_peak_mb {st.get('mem_peak_mb', 0):.1f}, "
               f"phases {json.dumps(st['phases'])}")
 
@@ -1836,7 +1863,7 @@ def grid256_phase(smi, dev, sfu, geom, analytic_128):
     check(rel_fast <= SUBSAMPLED_REL_L2_MAX, "256^3 subsampled fast tier within 1e-2")
     lo, hi = ANALYTIC_RATIO_256
     check(lo <= analytic / analytic_128 <= hi, "256^3 analytic rel-L2 0.4-0.6x 128^3's")
-    # the default tier's time is in refine_detail and the host-loop counters
+    # the default tier's time is in the correction's spans
     profile_solve("warm 256^3 fast-tier solve", lambda: solver.compute_distance(geom, opts),
                   statistics.median([r["s"] for r in fast[1:]]), smi, names=GRID_KERNELS,
                   eager=True)
@@ -1893,11 +1920,15 @@ def hostproj_phase(smi, dev, geom, phi_ref_128):
     print(f"host-projected tier: the main path's input with max_device_pins=None, m={m}")
     print_grid_solves("host-projected", runs)
     for r in runs[1:]:
-        hl, it = r["stats"]["host_loop"], r["stats"]["iters"]
-        print(f"  warm: {r['s']:.4f} s, {it} iterations, {hl['gram_solves']} host Gram solves "
-              f"{hl['gram_solve_s']:.4f} s of the loop's {hl['loop_s']:.4f} s "
-              f"({hl['gram_solve_s'] / hl['loop_s']:.1%}); {1e3 * hl['loop_s'] / max(it, 1):.2f} ms "
-              f"an iteration, {1e3 * hl['gram_solve_s'] / max(hl['gram_solves'], 1):.2f} ms a Gram "
+        st, it = r["stats"], r["stats"]["iters"]
+        # the primary solve's loop: its Gram solves, not the corrections'
+        grams, gram_s = span_s(st, "Gram lu.solve", under="host-projected cg solve")
+        loop = next(x for x in st["spans"] if x[0] == "host-projected cg solve")
+        loop_s = (loop[4] - loop[3]) / 1e9
+        print(f"  warm: {r['s']:.4f} s, {it} iterations, {grams} host Gram solves "
+              f"{gram_s:.4f} s of the loop's {loop_s:.4f} s "
+              f"({gram_s / loop_s:.1%}); {1e3 * loop_s / max(it, 1):.2f} ms "
+              f"an iteration, {1e3 * gram_s / max(grams, 1):.2f} ms a Gram "
               f"solve ({smi})")
     print(f"  rel-L2 against the 128^3 reference {rel:.6e} (limit {FAST_TIER_REL_L2_MAX:g}); "
           f"distinct phi {len({r['phi'] for r in runs})}")
@@ -2723,8 +2754,8 @@ def expected_graph_launches(st) -> tuple:
     from shm3d_torch.ops.wavefront import CHECK_EVERY
 
     solves, loops, stages = 0, 0, 0
-    if "chunks" in st:
-        solves = len(st["chunks"] + st.get("proj_chunks", []))
+    if st["step3_path"] in ("crouzeix-raviart", "vertex"):
+        solves = len(device_solves(st))
     elif "wavefront_sweeps" in st:
         stages, loops = 2, -(-st["wavefront_sweeps"] // CHECK_EVERY)
     else:

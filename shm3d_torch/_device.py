@@ -43,3 +43,13 @@ def synchronize(device: torch.device) -> None:
     """Wait for the queued work of ``device`` (no-op on the CPU)."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def reset_peak_memory(device: torch.device) -> None:
+    """Start ``torch.cuda.max_memory_allocated`` anew on ``device`` (no-op on
+    the CPU).  CUDA is initialised first: in a process that has not used
+    the card yet the allocator's statistics do not exist, and the reset
+    raises "Invalid device argument"."""
+    if device.type == "cuda":
+        torch.cuda.init()
+        torch.cuda.reset_peak_memory_stats(device)

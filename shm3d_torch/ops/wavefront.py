@@ -26,6 +26,7 @@ from __future__ import annotations
 import torch
 
 from ..solve import graphs
+from ..utils import timing
 
 # sweeps between two tests of "every node visited" (one host sync each);
 # sweeps past completion change nothing, so the result does not depend on it
@@ -117,7 +118,10 @@ def greedy_integrate_wavefront(Y: torch.Tensor, cell_size: float, shape, cache=N
     for count in chunks:
         stepper.step(sizes.index(count))
         sweeps += count
-        if count == CHECK_EVERY and bool(stepper.state["done"]):
-            break
+        if count == CHECK_EVERY:
+            with timing.tally("done flag read", timing.WAIT):
+                done = bool(stepper.state["done"])
+            if done:
+                break
     return (stepper.state["phi"].reshape(-1).clone(), sweeps,
             int(stepper.state["visited"].sum()))

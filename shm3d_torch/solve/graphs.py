@@ -41,7 +41,11 @@ projected MG-PCG at 128^3, ~430 of the tet face CG, 348 of the vertex CG.
   call of a ``ChunkGraph`` or ``StageGraph`` runs its setup or stage
   eagerly (that is its result) before the capture, so a cold solve
   launches what an eager one does, plus one warm-up iteration.
-- ``GRAPH_LAUNCHES`` counts every replay and launch of these graphs.
+- ``GRAPH_LAUNCHES`` counts every replay and launch of these graphs,
+  ``CAPTURES`` every capture (a warm solve adds none).
+- Spans (``utils.timing``): a ``ChunkGraph`` solve records its setup's
+  replay and each chunk graph's launch (``launch``) and its read of the
+  stop state (``wait``); an ``IterationGraph``'s replays are one tally.
 - ``note_launch`` / ``LaunchCounts``: a kernel wrapper called while a
   graph is captured launches nothing; it notes its launch, and each run of
   what holds it adds the noted launches to the wrapper's counter
@@ -60,18 +64,20 @@ from typing import Callable, Optional
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
+from ..utils import timing
+
 # the launch counts of the body being captured: (module, counter) ->
 # launches; None outside a capture
 _recording: Optional[collections.Counter] = None
 
 
-def note_launch(module: str, counter: str) -> bool:
-    """A kernel wrapper's launch: while a body is captured, note it for
-    the graph's replays to count and return True; else return False (the
-    wrapper counts its launch itself)."""
+def note_launch(module: str, counter: str, n: int = 1) -> bool:
+    """A kernel wrapper's ``n`` launches: while a body is captured, note
+    them for the graph's replays to count and return True; else return
+    False (the wrapper counts its launches itself)."""
     if _recording is None:
         return False
-    _recording[(module, counter)] += 1
+    _recording[(module, counter)] += n
     return True
 
 
@@ -168,6 +174,7 @@ class IterationGraph:
             except Exception as e:
                 raise RuntimeError(f"CUDA graph capture of a loop body failed at "
                                    f"{op.last}: {e}") from e
+            _captured()
             pool = graph.pool()  # the bodies run one at a time: one pool
             self.graphs.append(graph)
             self.counts.append(counts)
@@ -177,7 +184,8 @@ class IterationGraph:
             self.state[k].copy_(v)
 
     def step(self, i: int = 0) -> None:
-        self.graphs[i].replay()
+        with timing.tally("loop body replays", timing.LAUNCH):
+            self.graphs[i].replay()
         _launched()
         self.counts[i].add()
 
@@ -223,11 +231,20 @@ HOST_READS = 0
 # graph launches in this process: a replay of a stage, a Krylov setup or a
 # loop body, a chunk graph's launch
 GRAPH_LAUNCHES = 0
+# graph captures in this process: a stage, a Krylov setup, a loop or chunk
+# body (a solve at a new lambda or shape captures anew)
+CAPTURES = 0
 
 
 def _launched() -> None:
     global GRAPH_LAUNCHES
     GRAPH_LAUNCHES += 1
+
+
+def _captured() -> None:
+    global CAPTURES
+    CAPTURES += 1
+
 # one side stream a device for the warm-ups and captures of the chunk and
 # stage graphs
 _SIDE: dict = {}
@@ -283,7 +300,8 @@ class ChunkGraph:
                 if self.inputs[k] is not v:
                     self.inputs[k].copy_(v)
             self._write_params(params)
-            self._launch_setup()
+            with timing.span("setup graph", timing.LAUNCH):
+                self._launch_setup()
         return self._run()
 
     def _kinds(self) -> list:
@@ -299,8 +317,10 @@ class ChunkGraph:
         from . import stop
 
         for i in range(len(self.chunks)):
-            self._launch_chunk(i)
-        host = self.state["stop"].tolist()  # the one host read of a solve
+            with timing.span("chunk graph", timing.LAUNCH):
+                self._launch_chunk(i)
+        with timing.span("stop state read", timing.WAIT):
+            host = self.state["stop"].tolist()  # the one host read of a solve
         self.reads += 1
         HOST_READS += 1
         left = int(host[stop.K])  # the iterations that ran, in body order
@@ -362,6 +382,7 @@ class ChunkGraph:
                 for k, v in self.setup(self.inputs).items():
                     self.state[k].copy_(v)
                 self.start(self.state)
+            _captured()
             pool = self.setup_graph.pool()
             self.body_graphs = []
             for j, loop in self._kinds():
@@ -370,6 +391,7 @@ class ChunkGraph:
                 cond = stop.chunk_condition(chunk.handle) if loop else contextlib.nullcontext()
                 with counts.recording(), cond, torch.cuda.graph(body, pool=pool, stream=side), op:
                     self.bodies[j]()
+                _captured()
                 chunk.build(body.raw_cuda_graph(), self.state["go"])
                 nodes = chunk.node_counts()
                 if nodes[1] != 1:
@@ -435,6 +457,7 @@ class StageGraph:
         except Exception as e:
             raise RuntimeError(f"CUDA graph capture of a stage failed at {op.last}: "
                                f"{e}") from e
+        _captured()
         current.wait_stream(side)
         self.graph = graph
         return out

@@ -23,11 +23,13 @@ loop's bit for bit.  Vectors there also need ``clone`` and ``copy_``.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from ..utils import timing
 from . import stop
 
 
@@ -209,6 +211,21 @@ def cg_body(matvec, M, s: dict) -> None:
         s[k].copy_(v)
 
 
+def _spanned(name: str):
+    """A solve as one span of the solve's recorder (``utils.timing``) with
+    its iterations."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def run(*args, **kw) -> SolveResult:
+            with timing.span(name, timing.GROUP) as sp:
+                res = fn(*args, **kw)
+                sp.set(iters=int(res.iterations))
+            return res
+        return run
+    return wrap
+
+
+@_spanned("cg solve")
 def cg_run(
     matvec: Callable,
     b,
@@ -305,6 +322,7 @@ def minres_body(matvec, M, s: dict, first: bool, eps: float) -> None:
         s[k].copy_(src)
 
 
+@_spanned("minres solve")
 def minres_run(
     matvec: Callable,
     b,

@@ -49,7 +49,6 @@ first device, as in shm3d, and ``last_stats["mesh"]["fallback"]`` says so.
 from __future__ import annotations
 
 import math
-import time
 import warnings
 from typing import Optional
 
@@ -62,7 +61,7 @@ from ..geometry import sources as src_mod
 from ..io.mesh_io import Mesh
 from ..utils import diskcache
 
-from .._device import resolve_device, synchronize, torch_dtype
+from .._device import reset_peak_memory, resolve_device, torch_dtype
 from .._inputs import check_inputs
 from ..ops import farfield, stencil
 from ..ops.wavefront import greedy_integrate_wavefront
@@ -73,8 +72,8 @@ from ..parallel.ring import yukawa_field_ring
 from ..parallel.shards import DeviceMesh, Shards, shard_rows
 from ..solve import graphs as graph_mod
 from ..solve import krylov, multigrid, projection
-from ..utils import checks
-from ..utils.timing import PhaseTimer
+from ..utils import checks, timing
+from ..utils.timing import HOST, LAUNCH, WAIT, PhaseTimer
 
 # disk-cache namespaces: the artifact format of shm3d ("g2"), under keys of
 # its own so the two packages never read each other's entries
@@ -89,21 +88,27 @@ REFINE_MAX_NODES = 100_000_000
 class GridResult:
     """Solve result: ``phi_device`` is the (N,) tensor on the solver's
     device (flat node order), ``phi`` a float64 host copy made on first
-    access."""
+    access (its spans go to the solve's ``last_stats["spans"]`` through
+    ``spans``, the solve's recorder)."""
 
     def __init__(self, phi_dev: torch.Tensor, grid: griddom.GridSpec,
                  Y: Optional[torch.Tensor] = None,
-                 u_dev: Optional[torch.Tensor] = None):
+                 u_dev: Optional[torch.Tensor] = None,
+                 spans: Optional[PhaseTimer] = None):
         self._phi_dev = phi_dev
         self._phi_host: Optional[np.ndarray] = None
         self.grid = grid
         self.Y = Y              # (N, 3) normalized Step-2 field
         self.u_device = u_dev   # (N,) primal solution before phi = -u + shift
+        self._spans = spans
 
     @property
     def phi(self) -> np.ndarray:
         if self._phi_host is None:
-            self._phi_host = self._phi_dev.detach().cpu().numpy().astype(np.float64)
+            with timing.after(self._spans, "phi to host", WAIT):
+                phi = self._phi_dev.detach().cpu()
+            with timing.after(self._spans, "phi to float64", HOST):
+                self._phi_host = phi.numpy().astype(np.float64)
         return self._phi_host
 
     @property
@@ -296,27 +301,37 @@ def _solve_pinned_hostproj(b, nodes8, coeffs8, at, host_gram, cell_size: float, 
     (without pin masks), A and A^T run on the device, and each of the two
     projections of an iteration sends an (m,) vector to the host splu solve
     of A A^T and back.  Returns (u, iterations, relative preconditioned
-    residual) with u in ker(A).  ``stats`` (a dict) accumulates the Gram
-    solves, their host seconds and the loop's seconds.  ``graphs`` as in
+    residual) with u in ker(A).  ``stats`` (a dict) counts the Gram solves
+    (``gram_solves``); their host time is one tally span of the solve's
+    recorder (``utils.timing``).  ``graphs`` as in
     ``_solve_pinned``: on one CUDA device an iteration is three graph
     replays (``_hostproj_segments``, shm3d's ``_hp_step1/2/3``) with the
     two Gram solves between them; the graph reads every row's tables (the
     only tables this loop is given), so the primary and correction solves
     of a discretization share it."""
+    with timing.span("host-projected cg solve", timing.GROUP) as sp:
+        u, k, rel = _hostproj_loop(b, nodes8, coeffs8, at, host_gram, cell_size, shape,
+                                   tol, maxiter, {} if stats is None else stats, graphs)
+        sp.set(iters=k)
+    return u, k, rel
+
+
+def _hostproj_loop(b, nodes8, coeffs8, at, host_gram, cell_size: float, shape,
+                   tol: float, maxiter: int, stats: dict, graphs):
     _, lu = host_gram
     N = b.shape[0]
     mg = multigrid.make_node_preconditioner(shape, cell_size)
-    stats = {} if stats is None else stats
-    for k in ("gram_solves", "gram_solve_s", "loop_s"):
-        stats.setdefault(k, 0)
-    t_loop = time.perf_counter()
+    stats.setdefault("gram_solves", 0)
 
     def gram(a: np.ndarray) -> np.ndarray:
-        t0 = time.perf_counter()
-        z = lu.solve(a)
-        stats["gram_solve_s"] += time.perf_counter() - t0
+        with timing.tally("Gram lu.solve", HOST):
+            z = lu.solve(a)
         stats["gram_solves"] += 1
         return z
+
+    def to_host(get) -> np.ndarray:
+        with timing.tally("A v to host", WAIT):
+            return get().numpy().astype(np.float64)
 
     def a_of(v):
         return projection.a_apply(v, nodes8, coeffs8)
@@ -325,7 +340,7 @@ def _solve_pinned_hostproj(b, nodes8, coeffs8, at, host_gram, cell_size: float, 
         return projection.at_apply(z, at, N)
 
     def proj(v):
-        z = gram(a_of(v).cpu().numpy().astype(np.float64))
+        z = gram(to_host(a_of(v).cpu))
         return v - at_of(torch.as_tensor(z, device=v.device).to(v.dtype))
 
     def hmatvec(u):
@@ -354,11 +369,9 @@ def _solve_pinned_hostproj(b, nodes8, coeffs8, at, host_gram, cell_size: float, 
 
         def iterate():
             stepper.step(0)
-            stepper.write("z1", torch.from_numpy(
-                gram(stepper.read("a1").numpy().astype(np.float64))))
+            stepper.write("z1", torch.from_numpy(gram(to_host(lambda: stepper.read("a1")))))
             stepper.step(1)
-            stepper.write("z2", torch.from_numpy(
-                gram(stepper.read("a2").numpy().astype(np.float64))))
+            stepper.write("z2", torch.from_numpy(gram(to_host(lambda: stepper.read("a2")))))
             stepper.step(2)
 
     best = resid = bnorm
@@ -367,12 +380,12 @@ def _solve_pinned_hostproj(b, nodes8, coeffs8, at, host_gram, cell_size: float, 
         for _ in range(min(HOSTPROJ_CHECK_EVERY, maxiter - k)):
             iterate()
             k += 1
-        resid = math.sqrt(abs(float(s["rz"])))
+        with timing.tally("residual read", WAIT):
+            resid = math.sqrt(abs(float(s["rz"])))
         if resid < 0.98 * best:
             best, since = resid, 0
         else:
             since += 1
-    stats["loop_s"] += time.perf_counter() - t_loop
     u = s["u"] if run is None else s["u"].clone()
     return u, k, resid / max(bnorm, float(np.finfo(np.float64).tiny))
 
@@ -482,8 +495,12 @@ def project_f64(v, nodes8, coeffs8_64: torch.Tensor, at64, gram_lu):
     A^T z there (``at64``: A^T's table, float64), the (m,) Gram solve
     z = (A A^T)^{-1} A v on the host with the splu factor (the only
     crossing: two (m,) vectors)."""
-    a = projection.a_apply(v, nodes8, coeffs8_64).cpu().numpy()
-    z = torch.as_tensor(gram_lu.solve(a), device=v.device)
+    a = projection.a_apply(v, nodes8, coeffs8_64)
+    with timing.span("A v to host", WAIT):
+        a = a.cpu().numpy()
+    with timing.span("Gram lu.solve", HOST):
+        z = gram_lu.solve(a)
+    z = torch.as_tensor(z, device=v.device)
     return v - projection.at_apply(z, at64, v.shape[0])
 
 
@@ -497,8 +514,9 @@ def defect_f64(u, b, nodes8, coeffs8_64: torch.Tensor, at64, gram_lu, cell: floa
 def defect_host(u64: np.ndarray, b64: np.ndarray, A, gram_lu, cell: float,
                 shape) -> np.ndarray:
     """P (b - H u) in host NumPy float64 (the JAX package's host mode)."""
-    Hu = -_laplacian_apply_np(u64.reshape(shape), cell).reshape(-1)
-    return projection.host_project(b64 - Hu, A, gram_lu)
+    with timing.span("defect (host float64)", HOST):
+        Hu = -_laplacian_apply_np(u64.reshape(shape), cell).reshape(-1)
+        return projection.host_project(b64 - Hu, A, gram_lu)
 
 
 def cached_from_arrays(arrays: dict, device, dtype: torch.dtype) -> dict:
@@ -600,15 +618,19 @@ class GridSolver:
         check_inputs(geom, options)
         dtype = torch_dtype(options.dtype)
         tm = PhaseTimer(self.device, verbose=options.verbose)
+        self.last_stats = {}
+        with tm.solve(self.last_stats):
+            return self._solve(geom, options, dtype, tm)
+
+    def _solve(self, geom, options, dtype, tm) -> GridResult:
         is_mesh = isinstance(geom, Mesh)
         tol = options.resolved_solver_tol()
-        self.last_stats = {}
-        if self.device.type == "cuda":
-            torch.cuda.reset_peak_memory_stats(self.device)
+        reset_peak_memory(self.device)
 
         with tm.phase("precompute (sources + grid + constraints)"):
-            key = (diskcache.geometry_content_hash(geom), options.cache_key())
-            cached = self._cache.get(key)
+            with timing.span("cache lookup (geometry hash)", HOST):
+                key = (diskcache.geometry_content_hash(geom), options.cache_key())
+                cached = self._cache.get(key)
             if cached is None:
                 arrays = (diskcache.load(_CACHE_NS + key)
                           if options.disk_cache else None)
@@ -696,15 +718,17 @@ class GridSolver:
         if self.device.type == "cuda":
             self.last_stats["mem_peak_mb"] = (
                 torch.cuda.max_memory_allocated(self.device) / 1e6)
-        return GridResult(phi, grid, Y, u_dev=u)
+        return GridResult(phi, grid, Y, u_dev=u, spans=tm)
 
     def _stage(self, cached, key, fn, *inputs, eager: bool = False):
         """``fn(*inputs)``: on one CUDA device one replay of the stage graph
         kept in the discretization's graphs under ``key`` (the first call
         runs it and captures it; ``solve.graphs.StageGraph``), else (the
-        CPU, z-slabs, a mesh: ``eager``) the function itself."""
+        CPU, z-slabs, a mesh: ``eager``) the function itself; a ``launch``
+        span named by ``key[0]`` either way."""
         run = None if eager else graph_mod.stage_runner(_graphs(cached), key, self.device)
-        return fn(*inputs) if run is None else run.get(fn)(*inputs)
+        with timing.span(f"{key[0]} stage", LAUNCH):
+            return fn(*inputs) if run is None else run.get(fn)(*inputs)
 
     def _chunk_len(self, queries, points) -> Optional[int]:
         """K1's source chunk for this launch on a CUDA device (None on the
@@ -764,8 +788,10 @@ class GridSolver:
         if grid.n <= 32:
             self.last_stats["step3_path"] = "greedy-bfs"
             with tm.phase("step 3 (greedy BFS integration, host)"):
-                phi = integrate_greedily_grid(
-                    grid, Y.detach().cpu().numpy().astype(np.float64))
+                with timing.span("Y to host", WAIT):
+                    Y64 = Y.detach().cpu().numpy().astype(np.float64)
+                with timing.span("greedy BFS", HOST):
+                    phi = integrate_greedily_grid(grid, Y64)
                 return torch.as_tensor(phi, device=Y.device).to(dtype)
         self.last_stats["step3_path"] = "greedy-wavefront"
         with tm.phase("step 3 (greedy wavefront integration, device)"):
@@ -892,24 +918,11 @@ class GridSolver:
             if c64 is None:
                 c64 = torch.as_tensor(cached["coeffs8_f64"], device=u.device)
                 cached["coeffs8_dev64"] = c64
-            detail = self.last_stats.setdefault(
-                "refine_detail", {"project_s": 0.0, "correction_s": 0.0})
-
-            def timed(fn, key):
-                def run(*args):
-                    t0 = time.perf_counter()
-                    out = fn(*args)
-                    synchronize(u.device)
-                    detail[key] += time.perf_counter() - t0
-                    return out
-                return run
-
             at64 = cached["at64"]
-            project = timed(lambda v: project_f64(v, nodes8, c64, at64, lu), "project_s")
-            defect = timed(lambda v: defect_f64(v, b, nodes8, c64, at64, lu, cell, shape),
-                           "project_s")
-            correct = timed(lambda r, rel: self._correction_solve(
-                r.to(u.dtype), cached, grid, options, rel=rel), "correction_s")
+            project = lambda v: project_f64(v, nodes8, c64, at64, lu)
+            defect = lambda v: defect_f64(v, b, nodes8, c64, at64, lu, cell, shape)
+            correct = lambda r, rel: self._correction_solve(
+                r.to(u.dtype), cached, grid, options, rel=rel)
             b = -_rhs_div(Y.to(torch.float64), cell, shape, is_mesh)
             norm = _norm
             absmax = lambda v: float(v.abs().max())
@@ -919,12 +932,18 @@ class GridSolver:
             narrow = lambda x: x.to(u.dtype)
         else:
             # host NumPy float64 throughout
-            Y64 = _host(Y).reshape(*shape, 3)
-            div64 = _div64_np(Y64, cell)
-            if is_mesh:
-                div64 = np.where(np.isfinite(div64), div64, 0.0)
+            with timing.span("Y to host", WAIT):
+                Y64 = _host(Y).reshape(*shape, 3)
+            with timing.span("divergence (host float64)", HOST):
+                div64 = _div64_np(Y64, cell)
+                if is_mesh:
+                    div64 = np.where(np.isfinite(div64), div64, 0.0)
             b = -div64
-            project = lambda v: projection.host_project(v, A, lu)
+
+            def project(v):
+                with timing.span("project (host float64)", HOST):
+                    return projection.host_project(v, A, lu)
+
             defect = lambda v: defect_host(v, b, A, lu, cell, shape)
             correct = lambda r, rel: self._correction_solve(
                 _on_device(r, u, u.dtype), cached, grid, options, rel=rel)
@@ -940,15 +959,16 @@ class GridSolver:
         r = defect(x)
         rel = norm(r) / bnorm
         rels.append(record(rel))
-        for _ in range(options.refine_pass_budget(rel)):
+        for k in range(options.refine_pass_budget(rel)):
             if not np.isfinite(rel) or rel <= options.refine_target:
                 tm.note(f"refine skipped/stopped at rel_res={rel:.2e}")
                 break
-            scale = absmax(r)
-            scale = scale if scale > 0 else 1.0
-            x = project(x + scale * widen(correct(r / scale, rel)))
-            r = defect(x)
-            new_rel = norm(r) / bnorm
+            with timing.span("defect pass", timing.GROUP, **{"pass": k + 1}):
+                scale = absmax(r)
+                scale = scale if scale > 0 else 1.0
+                x = project(x + scale * widen(correct(r / scale, rel)))
+                r = defect(x)
+                new_rel = norm(r) / bnorm
             rels.append(record(new_rel))
             stalled = not np.isfinite(new_rel) or new_rel > 0.5 * rel
             rel = new_rel if np.isfinite(new_rel) else rel

@@ -14,7 +14,8 @@ application -- the CG matvec and the AMG V-cycle's level-0 smoothing --
 runs the sliced-ELL kernel.  The
 solves run on the device in the compute dtype, each as one unbounded CG
 (the JAX package's bounded chunks answer the TPU runtime's watchdog), with
-host f64 defect correction (tet/solver._refined_solve).
+host f64 defect correction (tet/solver._refined_solve), each step a span
+of the solve's recorder (``utils.timing``).
 """
 
 from __future__ import annotations
@@ -31,9 +32,11 @@ from ..utils import order
 
 from .._device import resolve_device, torch_dtype
 from ..solve import amg, ell, pell
+from ..utils import timing
 from ..utils import tree as tree_mod
+from ..utils.timing import HOST, LAUNCH
 from .solver import (_group_projector, _mg_or_jacobi, _pcg, _refined_solve,
-                     _run_chunked, _zeroset_solve)
+                     _to_host64, _zeroset_solve)
 
 #: store CR operators paged at or above this nnz (float32 only)
 PAGED_MIN_NNZ = 2_000_000
@@ -395,13 +398,12 @@ class CRPath:
         nf = self.nf
         nv = self.mesh.n_vertices
         tol, maxiter = options.resolved_solver_tol(), options.solver_maxiter
-        div = _cr_divergence(Y, a["divt"], a["divn"])
-        div64 = div.cpu().numpy().astype(np.float64)
+        with timing.span("divergence", LAUNCH):
+            div = _cr_divergence(Y, a["divt"], a["divn"])
+        div64 = _to_host64(div, "divergence")
 
         mode = options.level_set_constraint
         h = self._hierarchy(mode)
-        solve_stats: dict = {}
-        proj_stats: dict = {}
         refine_stats: dict = {}
         proj_refine_stats: dict = {}
         H64 = self._H
@@ -413,10 +415,8 @@ class CRPath:
             m64 = self._mask64
             b64 = m64 * div64
             host_op = lambda x: m64 * (H64 @ (m64 * x)) + (1.0 - m64) * x
-            run = lambda b, tol=tol, maxiter=maxiter: _run_chunked(
-                lambda x0, it: _zeroset_solve(
-                    b, x0, a["L"], a["diag"], a["surf_mask"], h, tol, it, graph),
-                zeros, maxiter, stats=solve_stats)
+            run = lambda b, tol=tol, maxiter=maxiter: _zeroset_solve(
+                b, zeros, a["L"], a["diag"], a["surf_mask"], h, tol, maxiter, graph)
             phi_f, it1, r1 = refined(run, host_op, b64, refine_stats)
         elif mode == LevelSetConstraint.MULTIPLE:
             labels = np.asarray(src_face_components)
@@ -436,48 +436,43 @@ class CRPath:
 
             b64 = proj64(div64)
             host_op = lambda x: proj64(H64 @ x)
-            run = lambda b, tol=tol, maxiter=maxiter: _run_chunked(
-                lambda x0, it: _cr_multiple_solve(
-                    b, x0, a["L"], a["diag"], g_elems, g_ids, g_winv, n_groups,
-                    h, tol, it, graph),
-                zeros, maxiter, stats=solve_stats)
+            run = lambda b, tol=tol, maxiter=maxiter: _cr_multiple_solve(
+                b, zeros, a["L"], a["diag"], g_elems, g_ids, g_winv, n_groups,
+                h, tol, maxiter, graph)
             phi_f, it1, r1 = refined(run, host_op, b64, refine_stats)
             phi_f = phi_f - self._face_shift64(phi_f, src_face_areas)
         else:
             b64 = div64 - div64.mean()
             host_op = lambda x: (lambda y: y - y.mean())(H64 @ x)
-            run = lambda b, tol=tol, maxiter=maxiter: _run_chunked(
-                lambda x0, it: _cr_none_solve(
-                    b, x0, a["L"], a["diag"], h, tol, it, graph),
-                zeros, maxiter, stats=solve_stats)
+            run = lambda b, tol=tol, maxiter=maxiter: _cr_none_solve(
+                b, zeros, a["L"], a["diag"], h, tol, maxiter, graph)
             phi_f, it1, r1 = refined(run, host_op, b64, refine_stats)
             phi_f = phi_f - self._face_shift64(phi_f, src_face_areas)
 
         # L2 projection to vertices: (A^T M A + shift I) w = A^T M phi_f
         shift = float(self._proj_shift)
-        b64p = self._AtM_scipy @ phi_f
+        with timing.span("AtM @ phi_f", HOST):
+            b64p = self._AtM_scipy @ phi_f
         P64 = self._P_scipy
         host_opp = lambda x: P64 @ x + shift * x
         zeros_v = torch.zeros(nv, dtype=self.dtype, device=self.device)
-        runp = lambda b, tol=tol, maxiter=maxiter: _run_chunked(
-            lambda x0, it: _project_solve(
-                b, x0, a["P"], a["p_diag"], tol, it, shift=shift,
-                graph=None if self.graphs is None else (self.graphs, "projection")),
-            zeros_v, maxiter, stats=proj_stats)
+        runp = lambda b, tol=tol, maxiter=maxiter: _project_solve(
+            b, zeros_v, a["P"], a["p_diag"], tol, maxiter, shift=shift,
+            graph=None if self.graphs is None else (self.graphs, "projection"))
         w, it2, r2 = refined(runp, host_opp, b64p, proj_refine_stats)
         self.last_stats = {"iters": int(it1), "residual": float(r1),
                            "proj_iters": int(it2), "proj_residual": float(r2),
-                           "chunks": solve_stats.get("chunks", []),
-                           "proj_chunks": proj_stats.get("chunks", []),
                            "amg_sizes": list(h.sizes),
                            "refine_pass_rels": refine_stats.get("refine_pass_rels", []),
                            "proj_refine_pass_rels": proj_refine_stats.get("refine_pass_rels", [])}
         if self._proj_weak.size:
-            w = repair_mass_starved(w, self._proj_weak, np.asarray(self.mesh.tets))
+            with timing.span("repair_mass_starved", HOST):
+                w = repair_mass_starved(w, self._proj_weak, np.asarray(self.mesh.tets))
         return w
 
     def _face_shift64(self, phi_f, src_face_areas):
         """Area-weighted mean of phi over the surface faces, host f64."""
-        areas = np.asarray(src_face_areas, np.float64)
-        vals = np.asarray(phi_f)[self.surface_faces]
-        return float(np.sum(areas * vals) / np.sum(areas))
+        with timing.span("face shift", HOST):
+            areas = np.asarray(src_face_areas, np.float64)
+            vals = np.asarray(phi_f)[self.surface_faces]
+            return float(np.sum(areas * vals) / np.sum(areas))

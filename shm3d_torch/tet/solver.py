@@ -27,10 +27,10 @@ the missing family from the cached mesh and merges it back
 
 Left behind from the JAX package (TPU or old-artifact workarounds, not
 behaviour): the bounded, adaptively sized Krylov chunks and their cost
-estimates (the TPU runtime's watchdog; here a solve is one CG), the
-stall-detector state threaded across chunks, and the stale-artifact gate of
-the vertex family's encoding version (this namespace never held an older
-encoding).
+estimates (the TPU runtime's watchdog; here a device solve is one CG, its
+iterations on its span), the stall-detector state threaded across chunks,
+and the stale-artifact gate of the vertex family's encoding version (this
+namespace never held an older encoding).
 
 On a device mesh (``SignedHeatTetSolver(mesh=)``, a
 shm3d_torch.parallel.device_mesh) Step 1 runs the ring schedule over the
@@ -52,7 +52,6 @@ import collections
 import dataclasses
 import math
 import os
-import time
 from typing import Optional
 
 import numpy as np
@@ -67,13 +66,14 @@ from . import fem
 from .mesher import MESHER_VERSION, TetMesh, build_tet_domain
 from ..utils import checks, diskcache, treestore
 
-from .._device import resolve_device, torch_dtype
+from .._device import reset_peak_memory, resolve_device, torch_dtype
 from .._inputs import check_inputs
 from ..ops.yukawa import yukawa_field
 from ..parallel import rows, yukawa_field_ring
 from ..solve import amg, ell, graphs, krylov, pell
+from ..utils import timing
 from ..utils import tree as tree_mod
-from ..utils.timing import PhaseTimer
+from ..utils.timing import GROUP, HOST, LAUNCH, WAIT, PhaseTimer
 
 # disk-cache namespace of the port's prepared tet artifacts, apart from the
 # JAX package's ("tetprep", ...) so the two never read each other's trees;
@@ -99,17 +99,13 @@ def _stall_window(dtype) -> int:
     return 60 if dtype == torch.float32 else 1000
 
 
-def _run_chunked(solve_fn, x0, maxiter: int, stats: Optional[dict] = None):
-    """One unbounded device solve, ``solve_fn(x0, maxiter) -> (x, iters,
-    rel)``.  (The JAX package's bounded chunks answer the TPU runtime's
-    watchdog; off the TPU it runs exactly this one solve.)  ``stats``
-    accumulates a ``chunks`` list of {iters, s} per solve."""
-    t0 = time.perf_counter()
-    x, iters, resid = solve_fn(x0, maxiter)
-    if stats is not None:
-        stats.setdefault("chunks", []).append(
-            {"iters": int(iters), "s": round(time.perf_counter() - t0, 3)})
-    return x, int(iters), resid
+def _to_host64(x: torch.Tensor, what: str) -> np.ndarray:
+    """``x`` as a float64 host array: the copy (a ``wait`` span) and the
+    conversion (a ``host`` span)."""
+    with timing.span(f"{what} to host", WAIT):
+        x = x.cpu()
+    with timing.span(f"{what} to float64", HOST):
+        return x.numpy().astype(np.float64)
 
 
 def _refined_solve(run, host_op, b64, dtype, device, options, tm=None,
@@ -124,35 +120,47 @@ def _refined_solve(run, host_op, b64, dtype, device, options, tm=None,
     max(2 x primary iterations, 60) iterations and runs at the loose
     ``refine_solver_tol``, and a pass that fails to contract the f64
     residual 10x stops the correction.  Per-pass f64 residuals land in
-    ``stats["refine_pass_rels"]``.  Returns (x64, iters_total, rel_res)."""
+    ``stats["refine_pass_rels"]``.  Each step is a span of the solve's
+    recorder (``utils.timing``): the uploads and copies to the host, the
+    device solves (their iterations), the f64 conversions and residuals
+    inside "f64 defect correction".  Returns (x64, iters_total, rel_res)."""
     b64 = np.asarray(b64, np.float64)
-    put = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
-    x, iters, res = run(put(b64))
-    x64 = x.cpu().numpy().astype(np.float64)
+
+    def put(a, what):
+        with timing.span(f"{what} upload", WAIT):
+            return torch.as_tensor(a, dtype=dtype, device=device)
+
+    def residual(x64):
+        with timing.span("f64 residual (host_op)", HOST):
+            r64 = b64 - host_op(x64)
+            return r64, float(np.linalg.norm(r64)) / bnorm
+
+    x, iters, res = run(put(b64, "b"))
+    x64 = _to_host64(x, "x")
     total = int(iters)
     rel = float(res)
     bnorm = float(np.linalg.norm(b64))
     if options.refine_steps > 0 and dtype == torch.float32 and bnorm > 0:
-        r64 = b64 - host_op(x64)
-        rel = float(np.linalg.norm(r64)) / bnorm
-        rels = [rel] if stats is None else stats.setdefault("refine_pass_rels", [rel])
-        budget = options.refine_pass_budget(rel)
-        cap = max(2 * max(int(iters), 1), 60)
-        for _ in range(budget):
-            if not np.isfinite(rel) or rel <= options.refine_target:
-                break
-            d, it2, _ = run(put(r64), tol=options.refine_solver_tol, maxiter=cap)
-            x64 = x64 + d.cpu().numpy().astype(np.float64)
-            total += int(it2)
-            r64 = b64 - host_op(x64)
-            new_rel = float(np.linalg.norm(r64)) / bnorm
-            rels.append(new_rel)
-            # a pass costs about a primary solve, so one that fails to
-            # contract 10x means the float32 correction floor is reached
-            stalled = not np.isfinite(new_rel) or new_rel > 0.1 * rel
-            rel = new_rel if np.isfinite(new_rel) else rel
-            if stalled:
-                break
+        with timing.span("f64 defect correction", GROUP):
+            r64, rel = residual(x64)
+            rels = [rel] if stats is None else stats.setdefault("refine_pass_rels", [rel])
+            budget = options.refine_pass_budget(rel)
+            cap = max(2 * max(int(iters), 1), 60)
+            for k in range(budget):
+                if not np.isfinite(rel) or rel <= options.refine_target:
+                    break
+                with timing.span("defect pass", GROUP, **{"pass": k + 1}):
+                    d, it2, _ = run(put(r64, "r"), tol=options.refine_solver_tol, maxiter=cap)
+                    x64 = x64 + _to_host64(d, "d")
+                    total += int(it2)
+                    r64, new_rel = residual(x64)
+                rels.append(new_rel)
+                # a pass costs about a primary solve, so one that fails to
+                # contract 10x means the float32 correction floor is reached
+                stalled = not np.isfinite(new_rel) or new_rel > 0.1 * rel
+                rel = new_rel if np.isfinite(new_rel) else rel
+                if stalled:
+                    break
         if tm is not None:
             tm.note(f"defect correction: rel_res={rel:.2e} (f64, "
                     f"{len(rels) - 1}/{budget} passes)")
@@ -393,13 +401,17 @@ class SignedHeatTetSolver:
         torch_dtype(options.dtype)  # rejects an unknown dtype before meshing
         tm = PhaseTimer(self.device, verbose=options.verbose)
         self.last_stats = {}
-        if self.device.type == "cuda":
-            torch.cuda.reset_peak_memory_stats(self.device)
+        with tm.solve(self.last_stats):
+            return self._solve(geom, options, tm)
+
+    def _solve(self, geom, options, tm) -> TetResult:
+        reset_peak_memory(self.device)
 
         with tm.phase("tet precompute (mesh + operators)"):
-            key = (diskcache.geometry_content_hash(geom), options.cache_key(),
-                   MESHER_VERSION, os.environ.get("SHM3D_GRADED", ""), 1)
-            cached = self._cache.get(key)
+            with timing.span("cache lookup (geometry hash)", HOST):
+                key = (diskcache.geometry_content_hash(geom), options.cache_key(),
+                       MESHER_VERSION, os.environ.get("SHM3D_GRADED", ""), 1)
+                cached = self._cache.get(key)
             if cached is None:
                 prepared = None
                 if options.disk_cache:
@@ -423,7 +435,8 @@ class SignedHeatTetSolver:
                 Y = yukawa_field_ring(cached["barys"], cached["points"], cached["vectors"],
                                       lam, self.mesh).gather()
             else:
-                Y = yukawa_field(cached["barys"], cached["points"], cached["vectors"], lam)
+                with timing.span("K1 at the barycenters", LAUNCH):
+                    Y = yukawa_field(cached["barys"], cached["points"], cached["vectors"], lam)
             checks.check_unit_field("tet Step 2 field", Y)
 
         cr_wanted = options.use_crouzeix_raviart and not options.fast_integration
@@ -436,8 +449,9 @@ class SignedHeatTetSolver:
         if options.fast_integration:
             self.last_stats["step3_path"] = "greedy"
             with tm.phase("step 3 (greedy BFS, host)"):
-                phi = self._greedy(mesh, Y.cpu().numpy().astype(np.float64),
-                                   cached, options)
+                Y64 = _to_host64(Y, "Y")
+                with timing.span("greedy BFS", HOST):
+                    phi = self._greedy(mesh, Y64, cached, options)
         elif cr_wanted and cached.get("cr_path") is not None:
             self.last_stats["step3_path"] = "crouzeix-raviart"
             # the reference's default for conforming triangle meshes
@@ -453,7 +467,8 @@ class SignedHeatTetSolver:
             with tm.phase("step 3 (divergence + constrained solve)"):
                 phi = self._integrate(Y, mesh, cached, options, tm)
 
-        phi_host = np.asarray(phi, dtype=np.float64)
+        with timing.span("phi to float64", HOST):
+            phi_host = np.asarray(phi, dtype=np.float64)
         checks.check_finite("tet phi", phi_host)
         if self.mesh is not None:
             self.last_stats["mesh"] = self._mesh_stats(cached, options)
@@ -461,7 +476,7 @@ class SignedHeatTetSolver:
         if self.device.type == "cuda":
             self.last_stats["mem_peak_mb"] = (
                 torch.cuda.max_memory_allocated(self.device) / 1e6)
-        return TetResult(phi_host, mesh, Y.cpu().numpy().astype(np.float64))
+        return TetResult(phi_host, mesh, _to_host64(Y, "Y"))
 
     # -- internals
 
@@ -818,12 +833,12 @@ class SignedHeatTetSolver:
         n = mesh.n_vertices
         mode = options.level_set_constraint
         tol, maxiter = options.resolved_solver_tol(), options.solver_maxiter
-        div = _divergence(Y, cached["div_rows"], cached["div_tets"],
-                          cached["div_gvec"], n)
+        with timing.span("divergence", LAUNCH):
+            div = _divergence(Y, cached["div_rows"], cached["div_tets"],
+                              cached["div_gvec"], n)
         dtype = div.dtype
         H, diagH = cached["H_ell"], cached["diagH"]
         h = self._hierarchy(cached, mode, mesh.n_src, np.dtype(options.dtype))
-        solve_stats: dict = {}
         refine_stats: dict = {}
         H64 = cached["H_scipy"]
         # device solves run in equilibrated variables (the comment above
@@ -832,7 +847,7 @@ class SignedHeatTetSolver:
         # variables (run() presents an original-variable solve to
         # _refined_solve)
         vs = cached["vscale"]
-        div64 = div.cpu().numpy().astype(np.float64)
+        div64 = _to_host64(div, "divergence")
         zeros = torch.zeros(n, dtype=dtype, device=self.device)
         # the mode's iteration graph, beside the operator and hierarchy it
         # reads (dropped by _ensure_vertex_ops when it replaces them); on a
@@ -842,11 +857,8 @@ class SignedHeatTetSolver:
 
         def scaled_run(solve_of):
             def run(b, tol=tol, maxiter=maxiter):
-                bs = vs * b
-                y, iters, res = _run_chunked(
-                    lambda x0, it: solve_of(bs, x0, tol, it),
-                    zeros, maxiter, stats=solve_stats)
-                return vs * y, iters, res
+                y, iters, res = solve_of(vs * b, zeros, tol, maxiter)
+                return vs * y, int(iters), res
             return run
 
         refined = lambda run, host_op, b64: _refined_solve(
@@ -903,10 +915,10 @@ class SignedHeatTetSolver:
         tm.note(f"krylov iters={int(iters)} rel_res={float(res):.2e}")
         self.last_stats.update(
             iters=int(iters), rel_res=float(res), residual=float(res),
-            chunks=solve_stats.get("chunks", []),
             amg_sizes=list(h.sizes),
             refine_pass_rels=refine_stats.get("refine_pass_rels", []))
-        return phi.cpu().numpy()
+        with timing.span("phi to host", WAIT):
+            return phi.cpu().numpy()
 
     def _shift(self, phi: torch.Tensor, cached) -> torch.Tensor:
         """phi minus its dual-area-weighted mean over the source vertices."""

@@ -11,6 +11,7 @@ correction of the float32 solve) against shm3d.solvers.grid.
   stagnation rule, and phi lies within 1e-7 relative of a float64 solve of
   the same discretization and of the JAX package's default tier (phi is
   float32, ~3e-8 relative rounding; the Step-2 field is float32 in both);
+- the correction's spans: one a pass, with the host work of its mode;
 - the per-pass tolerance equals the JAX package's;
 - ``refine_skipped`` on every solve above REFINE_MAX_NODES and after a
   device out-of-memory error; any other error propagates.
@@ -94,7 +95,16 @@ def test_default_tier_matches_f64_and_shm3d(solved, case, mode):
     assert rels[-1] < 1e-3 * rels[0]
     # stopped at the target or by the 2x stagnation rule
     assert st["refine_rel_res"] <= BASE.refine_target or rels[-1] > 0.5 * rels[-2]
-    assert ("refine_detail" in st) == (mode == "pair")
+    # the correction's spans: a pass each, and its host work (the Gram LU
+    # solves on the device path, the NumPy defect in host mode)
+    spans = st["spans"]
+    (phase,) = [i for i, x in enumerate(spans) if x[0] == "float64 defect correction"]
+    refine = [x for x in spans if x[1] == phase or spans[x[1]][1] == phase]
+    assert [dict(x[5])["pass"] for x in refine if x[0] == "defect pass"] == \
+        list(range(1, len(rels)))
+    assert {x[0] for x in refine if x[2] == "host"} == (
+        {"Gram lu.solve"} if mode == "pair" else
+        {"divergence (host float64)", "project (host float64)", "defect (host float64)"})
     assert res.phi_device.dtype == torch.float32
     assert _rel(res.phi, ref64) <= TOL
     assert _rel(res.phi, jphi) <= TOL

@@ -13,6 +13,7 @@ body count as they launch; each body's launches are noted once (the
 "capture", on scratch state), and a solve adds the noted launches of the
 bodies that ran; the bodies themselves run under a recording that
 discards their own counts, as a replay launches nothing from the host.
+Each "capture" counts in ``graphs.CAPTURES`` as the card's does.
 """
 
 from shm3d_torch.solve import graphs, stop
@@ -35,11 +36,13 @@ class EmulatedChunks(graphs.ChunkGraph):
         with self.setup_counts.recording():  # the setup's "capture"
             self.setup(self.inputs)
             self.start(_clone(self.state))
+        graphs._captured()
         self.chunks = []
         for j, loop in self._kinds():        # each body's "capture"
             c = graphs.LaunchCounts()
             with c.recording():
                 self.make_bodies(_clone(self.state))[j]()
+            graphs._captured()
             self.chunks.append(((j, loop), c))
 
     def _write_params(self, params):
