@@ -168,7 +168,15 @@ Run from the repository root:  python3 chip_smoke.py
     memory access under it): the host's kernel launch calls and graph
     launches, the device's kernel events, mem_peak_mb, fewer than 100
     kernel launch calls in a warm main-path solve; the graphed solves' busy
-    share estimated from the eager solve's kernel time; the graphs' pool MB.
+    share estimated from the eager solve's kernel time; the graphs' pool MB;
+23. the full-row projector's packed-triangle kernel
+    (``shm3d_torch/csrc/tri_gemv.cu``), run right after phase 8 on the main
+    path's own factor (m = 15,706): T x and T^T x, kernel and plain
+    version, against the float64 product within the float32 rounding
+    bound, two calls bit for bit; a warm fast-tier and a warm default-tier
+    solve launch it once for each product with T
+    (``projection.TMAT_PRODUCTS``); a product timed against its bytes bound,
+    the plain version and torch.mv over the dense square (a yardstick).
 
 Every one-device solve on the card replays its device programs as CUDA
 graphs: the eager loops (``krylov.cg``, ``krylov.minres``,
@@ -286,6 +294,12 @@ SUBSAMPLED_REL_L2_MAX = 1e-2
 # the method is O(h): halving h about halves phi's distance from |x| - 1
 ANALYTIC_RATIO_256 = (0.4, 0.6)
 GRID_KERNELS = ("yukawa_partial", "yukawa_merge")
+# the packed-triangle kernel (csrc/tri_gemv.cu) and its plain version
+# against the float64 product with the same float32 factor, row by row:
+# |got - exact| / (|T| |x|) of a row stays under the float32 rounding bound
+# of a sum in blocks, (tile + tile rows) x 2^-24 (a thread sums 4-term dots
+# over at most nb tiles, then 16 or 32 partials in a tree)
+TRI_TILE_ROWS_EPS = 2.0 ** -24
 
 # phase 19, MINRES on the KKT system at 128^3 in float32.  Limits from
 # scripts/minres_kkt_cpu.py (both packages on the CPU, the main path's input
@@ -335,11 +349,15 @@ F64_PHI_BANDS = dict(min=1e-2, max=1e-3, mean_abs=1e-3, src_mean_abs=1e-3)
 # H100 80GB HBM3, 700 W, before the graphs; PERF.md), which the iteration
 # graphs repeat bit for bit: the main path's iterations and rel-L2 against |x| - 1, the
 # knot_dec face and vertex iterations, MINRES at 128^3, and in float64
-# sphere52k-128 (iterations, residual), bunny_dec CR and knot_dec CR
-EAGER_MAIN = (16, "8.774781e-03")
+# sphere52k-128 (iterations, residual), bunny_dec CR and knot_dec CR.  The
+# main path's reading is the packed-triangle kernel's (its sums run in
+# another order than cuBLAS's over the square, which read 8.774781e-03);
+# the float64 residual is that of the host Gram factor in SuperLU's
+# symmetric mode (the default column ordering read 8.6153e-11)
+EAGER_MAIN = (16, "8.774778e-03")
 EAGER_FACE_ITERS, EAGER_VERTEX_ITERS = 341, 362
 EAGER_MINRES = (3973, "1.3055e-02")
-EAGER_F64_GRID = (76, "8.6153e-11")
+EAGER_F64_GRID = (76, "8.6288e-11")
 EAGER_F64_BUNNY_CR_ITERS, EAGER_F64_KNOT_ITERS = 647, 3245
 # phase 22: a warm graphed main-path solve makes fewer kernel launch calls
 # than this (Steps 1-2, the divergence, the Krylov setup and the mean shift
@@ -1291,6 +1309,91 @@ def default_tier_phase(solver, geom, opts, phi_fast, yk, smi):
     return dict(rel_l2_fast_tier=rel_fast, rel_l2_default_tier=rel_default,
                 refine_rel_res=stats["refine_rel_res"],
                 warm_median_s=statistics.median(warm), phi_ref=phi_ref, analytic=analytic)
+
+
+def tri_gemv_phase(smi, dev, solver, geom, opts) -> dict:
+    """The full-row projector's packed-triangle kernel (csrc/tri_gemv.cu) on
+    the main path's own factor: T x and T^T x, kernel and plain version,
+    against the float64 product, two calls bit for bit; a warm fast-tier
+    and a warm default-tier solve launch it once for each product with T
+    (``projection.TMAT_PRODUCTS``); a product timed against its bytes bound
+    (the triangle and the two vectors at 3.35 TB/s), the plain version and
+    torch.mv over the dense square, the cuBLAS product the kernel replaced
+    (a yardstick only).  Returns its kernels-line entry."""
+    from shm3d_torch.solve import projection as proj
+
+    cached = next(iter(solver._impl._cache.values()))
+    f = cached["gram"].tmat
+    check(isinstance(f, proj.TriFactor), "the full-row factor is kept as packed tiles")
+    m, nb = f.m, -(-f.m // proj.TRI_TILE)
+    x = torch.randn(m, generator=torch.Generator(device=dev).manual_seed(5), device=dev)
+    dense = proj.tri_unpack(f).contiguous()
+    d64, x64 = dense.double(), x.double()
+    bound = (proj.TRI_TILE + nb) * TRI_TILE_ROWS_EPS
+    errs, same = {}, {}
+    for name, trans, mat in (("T x", False, d64), ("T^T x", True, d64.T)):
+        exact, scale = mat @ x64, mat.abs() @ x64.abs()
+        got, again = proj.tri_gemv_cuda(f, x, trans), proj.tri_gemv_cuda(f, x, trans)
+        torch.cuda.synchronize()
+        same[name] = bool(torch.equal(got, again))
+        for who, y in (("kernel", got), ("plain", proj.tri_gemv_torch(f, x, trans))):
+            rel = (y.double() - exact).abs() / scale.clamp_min(1e-300)
+            errs[f"{name} {who}"] = float(rel.max())
+    del d64, x64
+    worst = max(errs.values())
+    print(f"packed-triangle kernel: m={m}, {nb} tile rows, {f.tiles.shape[0]} tiles of "
+          f"{proj.TRI_TILE}^2 ({f.tiles.numel() * 4 / 1e9:.4f} GB against the square's "
+          f"{m * m * 4 / 1e9:.4f} GB); max |y - exact| / (|T| |x|) a row {json.dumps(errs)} "
+          f"(bound {bound:.3e}); two calls bit for bit {same}")
+    check(worst <= bound, "the packed-triangle kernel and its plain version within the "
+                          "float32 rounding bound of the float64 product")
+    check(all(same.values()), "two calls of the packed-triangle kernel give the same bits")
+
+    counts = {}
+    for tier, o in (("fast", opts), ("default", opts.with_(refine_steps=1))):
+        l0, p0 = proj.TRI_GEMV_LAUNCHES, proj.TMAT_PRODUCTS
+        solver.compute_distance(geom, o)
+        torch.cuda.synchronize()
+        counts[tier] = dict(launches=proj.TRI_GEMV_LAUNCHES - l0,
+                            products=proj.TMAT_PRODUCTS - p0,
+                            iters=solver.last_stats["iters"],
+                            correction_iters=solver.last_stats.get("correction_iters"))
+    print(f"  warm solves: packed-triangle launches against products with T "
+          f"{json.dumps(counts)}")
+    check(all(c["launches"] == c["products"] > 0 for c in counts.values()),
+          "a warm fast and default solve launch the packed-triangle kernel once a product")
+    check(counts["fast"]["products"] == 4 * (4 + 2 * counts["fast"]["iters"]),
+          "the fast tier's products: 4 a projection, 4 + 2 an iteration projections")
+
+    nbytes = 4 * (m * (m + 1) // 2) + 2 * 4 * m
+    bound_ms = nbytes / HBM_BYTES_S * 1e3
+    times = {}
+    for name, trans, mat in (("T x", False, dense), ("T^T x", True, dense.T)):
+        def kernel():
+            return proj.tri_gemv_cuda(f, x, trans)
+
+        def lib():
+            return torch.mv(mat, x)
+        # in turns: kernel, library, library, kernel
+        k1, l1 = time_ms(kernel, 50), time_ms(lib, 50)
+        l2, k2 = time_ms(lib, 50), time_ms(kernel, 50)
+        times[name] = dict(ms=(k1 + k2) / 2, library_ms=(l1 + l2) / 2,
+                           plain_ms=time_ms(lambda: proj.tri_gemv_torch(f, x, trans), 5),
+                           roofline_pct=100.0 * bound_ms / ((k1 + k2) / 2),
+                           turns_ms=[k1, l1, l2, k2])
+    del dense
+    torch.cuda.empty_cache()
+    ms = sum(t["ms"] for t in times.values()) / 2
+    print(f"  a product: {json.dumps(times)}; bound {bound_ms:.4f} ms ({nbytes / 1e9:.4f} GB "
+          f"at 3.35 TB/s; the stored tiles {f.tiles.numel() * 4 / 1e9:.4f} GB); "
+          f"{100.0 * bound_ms / ms:.1f}% of it ({smi})")
+    return {"name": "tri_gemv", "route": "cuda", "source": "shm3d_torch/csrc/tri_gemv.cu",
+            "replaces": None, "launches": sum(c["launches"] for c in counts.values()),
+            "max_abs_err": worst, "ms": ms,
+            "plain_ms": sum(t["plain_ms"] for t in times.values()) / 2,
+            "bound_ms": bound_ms, "bound_by": "bytes",
+            "library_ms": sum(t["library_ms"] for t in times.values()) / 2,
+            "per_path": {"products": times, "solves": counts}}
 
 
 @contextlib.contextmanager
@@ -3356,6 +3459,8 @@ def main() -> int:
                   statistics.median(warm), smi, rounds=2, eager=True)
     tier1 = default_tier_phase(solver, geom, opts, phi, yk, smi)
     stamp("default tier")
+    tri_entry = tri_gemv_phase(smi, dev, solver, geom, opts)
+    stamp("packed-triangle kernel")
     check_no_jax_package()
     sfu = sfu_pairs_per_s()
     mesh_k1, ring_k1 = mesh_phase(smi, dev, sfu, geom, opts, dict(
@@ -3490,7 +3595,7 @@ def main() -> int:
         "bound_by": "operations",
         "library_ms": None,
         "per_path": k1_f64["per_path"],
-    }, k3_entry, *stop_entries]}))
+    }, k3_entry, *stop_entries, tri_entry]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -124,7 +124,7 @@ def main() -> int:
             return gram32
         T = projection._device_tform(gram32.idx, gram32.val.double(), gram32.diag.double(),
                                      float(gram32.tform_eps))
-        return gram32._replace(tmat=T.float())
+        return gram32._replace(tmat=projection.tri_pack(T.float()))
 
     orig_precond = multigrid.make_node_preconditioner
 

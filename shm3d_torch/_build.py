@@ -208,6 +208,9 @@ def load_library() -> ctypes.CDLL:
     ]
     lib.shm3d_sell_f32.restype = ctypes.c_int
     ptr, cint, handle = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint64
+    for name in ("shm3d_tri_gemv_n_f32", "shm3d_tri_gemv_t_f32"):
+        getattr(lib, name).argtypes = [ptr, ptr, ptr, ctypes.c_int64, ctypes.c_int64, cint, ptr]
+        getattr(lib, name).restype = cint
     for suffix in ("f32", "f64"):
         fn = getattr(lib, f"shm3d_cg_stop_{suffix}")
         fn.argtypes = [ptr, ptr, ptr, ptr, cint, handle, cint, cint, ptr]

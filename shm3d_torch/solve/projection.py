@@ -15,6 +15,14 @@ whitened factor of the rows, built in one of three tiers:
 - ``tmat`` of a subsample (m > TFORM_FULL_CAP, float32): the exact host
   factor of spatially separated pin rows (``build_tform_arrays``).
 
+A factor built by Cholesky is lower triangular and is kept as packed tiles
+of its lower triangle (``TriFactor``), half the square's bytes.  Its
+products ``tri_gemv`` (T v, and T^T w with ``trans``) are one launch each
+of the kernel ``csrc/tri_gemv.cu`` on CUDA tensors (``TRI_GEMV_LAUNCHES``
+counts them) and the plain version ``tri_gemv_torch`` on the CPU.  The
+eigendecomposition fallback of ``build_tform_arrays`` gives a dense (r, m)
+factor, applied with plain matrix products.
+
 Past ORTHO_GRAM_CAP in float64, or without subsampled pins, the table has
 neither factor and the solver projects each iterate through the host splu
 factor of the full Gram matrix (``host_gram_factor``).
@@ -32,8 +40,9 @@ first device.  So both are bitwise equal to their single-device forms.
 
 from __future__ import annotations
 
+import ctypes
 import warnings
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Union
 
 import numpy as np
 import torch
@@ -53,6 +62,14 @@ TFORM_EPS_ATTEMPTS = 4
 # Products with the whitening factor T or T^T in this process, 4 a
 # ``project_t`` (counted at each run of a CUDA graph that holds one).
 TMAT_PRODUCTS = 0
+
+# Launches of the packed-triangle kernel (``tri_gemv_cuda``), counted as
+# TMAT_PRODUCTS is: on a solve whose factor is a ``TriFactor`` on the card
+# the two counts move together.
+TRI_GEMV_LAUNCHES = 0
+
+# the side of a packed tile (csrc/tri_gemv.cu: TILE)
+TRI_TILE = 64
 
 
 class NodeGather:
@@ -162,6 +179,115 @@ def at_apply(y: torch.Tensor, at, n: int):
     return out.index_copy_(0, at.nodes, (at.coef * y[at.rows]).sum(dim=1))
 
 
+class TriFactor(NamedTuple):
+    """A lower-triangular (m, m) matrix as packed square tiles of side
+    TRI_TILE, row-major inside a tile: tile (I, J), J <= I, at index
+    I (I + 1) / 2 + J, so a tile row is contiguous.  Diagonal tiles keep
+    their zero upper half; the last tile row and column are zero past m."""
+
+    tiles: torch.Tensor  # (nb (nb + 1) / 2, TRI_TILE, TRI_TILE), nb = ceil(m / TRI_TILE)
+    m: int
+
+
+def tri_pack(T: torch.Tensor) -> TriFactor:
+    """The lower triangle of the square ``T`` (its strict upper triangle
+    is dropped) as a ``TriFactor`` on T's device, one tile row at a time."""
+    m = T.shape[0]
+    b = TRI_TILE
+    nb = -(-m // b)
+    tiles = T.new_zeros((nb * (nb + 1) // 2, b, b))
+    for i in range(nb):
+        r0, r1 = i * b, min((i + 1) * b, m)
+        # rows r0..r1 up to the diagonal, padded to i + 1 whole tiles
+        blk = torch.nn.functional.pad(T[r0:r1, :r1].tril(r0),
+                                      (0, (i + 1) * b - r1, 0, b - (r1 - r0)))
+        start = i * (i + 1) // 2
+        tiles[start:start + i + 1].copy_(blk.view(b, i + 1, b).transpose(0, 1))
+    return TriFactor(tiles, m)
+
+
+def _tile_rows_cols(f: TriFactor):
+    """(tile row I, tile column J) of each packed tile, on its device."""
+    n = f.tiles.shape[0]
+    nb = -(-f.m // TRI_TILE)
+    dev = f.tiles.device
+    rows = torch.repeat_interleave(torch.arange(nb, device=dev),
+                                   torch.arange(1, nb + 1, device=dev))
+    return rows, torch.arange(n, device=dev) - rows * (rows + 1) // 2
+
+
+def tri_unpack(f: TriFactor) -> torch.Tensor:
+    """The dense (m, m) lower-triangular matrix of a ``TriFactor``."""
+    b, nb = TRI_TILE, -(-f.m // TRI_TILE)
+    rows, cols = _tile_rows_cols(f)
+    out = f.tiles.new_zeros((nb, nb, b, b))
+    out[rows, cols] = f.tiles
+    return out.transpose(1, 2).reshape(nb * b, nb * b)[:f.m, :f.m]
+
+
+def _blocks(v: torch.Tensor, f: TriFactor) -> torch.Tensor:
+    """(m,) as (nb, TRI_TILE) blocks, zero-padded."""
+    nb = -(-f.m // TRI_TILE)
+    return torch.nn.functional.pad(v, (0, nb * TRI_TILE - f.m)).view(nb, TRI_TILE)
+
+
+def tri_gemv_torch(f: TriFactor, x: torch.Tensor, trans: bool = False) -> torch.Tensor:
+    """T x (T^T x with ``trans``), the kernel's plain version: each tile (or
+    its transpose) times its block of x, summed into its tile row (column)."""
+    rows, cols = _tile_rows_cols(f)
+    src, dst = (rows, cols) if trans else (cols, rows)
+    tiles = f.tiles.transpose(1, 2) if trans else f.tiles
+    xb = _blocks(x, f)
+    prod = torch.bmm(tiles, xb[src].unsqueeze(-1)).squeeze(-1)
+    return torch.zeros_like(xb).index_add_(0, dst, prod).reshape(-1)[:f.m]
+
+
+def tri_gemv_cuda(f: TriFactor, x: torch.Tensor, trans: bool = False) -> torch.Tensor:
+    """T x (T^T x with ``trans``) in one launch of the kernel on the current
+    stream (float32, one CUDA device); does not synchronize."""
+    global TRI_GEMV_LAUNCHES
+    device = x.device
+    for name, t in (("tiles", f.tiles), ("x", x)):
+        if t.device != device or t.device.type != "cuda":
+            raise ValueError(f"{name}: expected a CUDA tensor on {device}, got {t.device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: the packed-triangle kernel takes float32, got {t.dtype}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name}: expected a contiguous, 16-byte aligned tensor")
+    nb = -(-f.m // TRI_TILE)
+    if f.tiles.shape != (nb * (nb + 1) // 2, TRI_TILE, TRI_TILE) or x.shape != (f.m,):
+        raise ValueError(f"expected ({nb * (nb + 1) // 2}, {TRI_TILE}, {TRI_TILE}) tiles "
+                         f"and x of ({f.m},), got {tuple(f.tiles.shape)} and {tuple(x.shape)}")
+    y = torch.empty(f.m, dtype=torch.float32, device=device)
+    from .._build import load_library
+
+    lib = load_library()
+    entry = lib.shm3d_tri_gemv_t_f32 if trans else lib.shm3d_tri_gemv_n_f32
+    with torch.cuda.device(device):
+        err = entry(ctypes.c_void_p(f.tiles.data_ptr()), ctypes.c_void_p(x.data_ptr()),
+                    ctypes.c_void_p(y.data_ptr()), ctypes.c_int64(f.m),
+                    ctypes.c_int64(TRI_TILE),
+                    ctypes.c_int(device.index if device.index is not None
+                                 else torch.cuda.current_device()),
+                    ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream))
+    if err != 0:
+        msg = lib.shm3d_cuda_error_string(err).decode()
+        raise RuntimeError(f"packed-triangle kernel launch failed: {msg} ({err})")
+    if not graphs.note_launch(__name__, "TRI_GEMV_LAUNCHES"):
+        TRI_GEMV_LAUNCHES += 1
+    return y
+
+
+def tri_gemv(f: TriFactor, x: torch.Tensor, trans: bool = False) -> torch.Tensor:
+    """T x (T^T x with ``trans``): the plain version for CPU tensors, the
+    kernel for CUDA tensors."""
+    if x.device.type == "cpu":
+        return tri_gemv_torch(f, x, trans)
+    if x.device.type == "cuda":
+        return tri_gemv_cuda(f, x, trans)
+    raise ValueError(f"unsupported device {x.device}")
+
+
 class GramTable(NamedTuple):
     """Device artifacts of the Gram matrix G = A A^T: its padded (m, K)
     neighbour table and the whitening factor of one tier."""
@@ -171,7 +297,9 @@ class GramTable(NamedTuple):
     diag: torch.Tensor                     # (m,) diagonal
     bmat: Optional[torch.Tensor] = None    # (r, nt) orthonormalized rows
     touched: Optional[torch.Tensor] = None # (nt,) int64 touched node ids
-    tmat: Optional[torch.Tensor] = None    # (r, m) whitening factor
+    # whitening factor: a Cholesky factor's packed lower triangle, or the
+    # dense (r, m) factor of the eigendecomposition fallback
+    tmat: Optional[Union[TriFactor, torch.Tensor]] = None
     tform_eps: Optional[float] = None      # shift the tmat factor settled on
 
 
@@ -291,7 +419,7 @@ def _device_tform(idx: torch.Tensor, val: torch.Tensor, diag: torch.Tensor,
     or None when the Cholesky factorization breaks down (cuSOLVER and LAPACK
     report that through ``info``, not through NaNs).  One triangular solve
     against the full (m, m) right-hand side: about 1 GB in float32 at
-    m = 15.8k."""
+    m = 15.8k.  T is lower triangular (L^-1 D^-1/2); the caller packs it."""
     m = idx.shape[0]
     dtype = val.dtype
     dscale = torch.rsqrt(torch.clamp_min(diag, torch.finfo(dtype).tiny))
@@ -316,7 +444,12 @@ def gram_from_arrays(arr: dict, device, dtype: torch.dtype) -> GramTable:
     x10 on each breakdown (TFORM_EPS_ATTEMPTS shifts in all); the shift that
     succeeded is recorded in ``GramTable.tform_eps``.  When every shift
     fails this warns and returns a table without a factor, so the solver
-    takes the host-projected loop for this discretization."""
+    takes the host-projected loop for this discretization.
+
+    A lower-triangular factor is packed here, at load, and its square
+    freed: the full-row tier's, and a host factor that is square with an
+    exactly zero strict upper triangle (``build_tform_arrays``'s Cholesky
+    factor; its eigendecomposition fallback is dense and stays so)."""
     idx = torch.as_tensor(np.asarray(arr["idx"]), device=device).long()
     val = torch.as_tensor(np.asarray(arr["val"]), device=device).to(dtype)
     diag = torch.as_tensor(np.asarray(arr["diag"]), device=device).to(dtype)
@@ -325,12 +458,17 @@ def gram_from_arrays(arr: dict, device, dtype: torch.dtype) -> GramTable:
     tmat = arr.get("tmat")
     eps = None
     if tmat is not None:
-        tmat = torch.as_tensor(np.asarray(tmat), device=device).to(dtype)
+        tmat = np.asarray(tmat)
+        lower = tmat.shape[0] == tmat.shape[1] and not np.triu(tmat, 1).any()
+        tmat = torch.as_tensor(tmat, device=device).to(dtype)
+        if lower:
+            tmat = tri_pack(tmat)
     elif arr.get("tform_eps") is not None:
         eps = float(arr["tform_eps"])
         for _ in range(TFORM_EPS_ATTEMPTS):
             tmat = _device_tform(idx, val, diag, eps)
             if tmat is not None:
+                tmat = tri_pack(tmat)
                 break
             eps *= 10.0
         else:
@@ -357,17 +495,23 @@ def make_projector(nodes8: torch.Tensor, coeffs8: torch.Tensor, gram: GramTable,
     instead."""
     if gram.tmat is not None:
         T = gram.tmat
+        if isinstance(T, TriFactor):
+            def whiten(y):
+                return tri_gemv(T, tri_gemv(T, y), trans=True)
+        else:
+            def whiten(y):
+                return T.T @ (T @ y)
 
         def project_t(v):
             global TMAT_PRODUCTS
             if not graphs.note_launch(__name__, "TMAT_PRODUCTS", 4):
                 TMAT_PRODUCTS += 4
             a = a_apply(v, nodes8, coeffs8)
-            z = T.T @ (T @ a)
+            z = whiten(a)
             # one Gram-refinement step: squares the damping error of the
             # eps-shifted factor and mops up its float32 rounding
             r = a - gram_apply(z, gram)
-            z = z + T.T @ (T @ r)
+            z = z + whiten(r)
             return v - at_apply(z, at, n)
 
         return project_t

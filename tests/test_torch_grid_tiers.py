@@ -71,7 +71,11 @@ def test_subsampled_tier_matches_shm3d(ico, caps):
     np.testing.assert_array_equal(tc["pin_keep"], jc["pin_keep"])
     m_full, m_pin = tc["nodes8"].shape[0], tc["pin_nodes8"].shape[0]
     assert 0 < m_pin <= 24 < m_full
-    assert tc["gram"].tmat.shape == (m_pin, m_pin)
+    # the subsample's Cholesky factor, kept as the packed lower triangle
+    tmat = tc["gram"].tmat
+    nb = -(-m_pin // projection.TRI_TILE)
+    assert isinstance(tmat, projection.TriFactor) and tmat.m == m_pin
+    assert tmat.tiles.shape == (nb * (nb + 1) // 2, projection.TRI_TILE, projection.TRI_TILE)
     # the device solve holds the pinned rows to its float32 floor (u before
     # the mean shift); the unpinned rows keep real slack
     u = tr.u_device
