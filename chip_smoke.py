@@ -177,6 +177,22 @@ Run from the repository root:  python3 chip_smoke.py
     solve launch it once for each product with T
     (``projection.TMAT_PRODUCTS``); a product timed against its bytes bound,
     the plain version and torch.mv over the dense square (a yardstick).
+24. the V-cycle's fused stencil kernels (``shm3d_torch/csrc/mg_stencil.cu``),
+    run after phase 23 on the main path's own pin masks: the Jacobi sweep
+    (from u and from zero), the residual and the Laplacian at 128^3 and the
+    coarsest level's 40 sweeps in one launch at 8^3, each bit for bit its
+    plain op chain, each timed in a CUDA graph against its bytes bound and
+    against the plain chain (a yardstick), the 128^3 ops on eight input sets
+    in turn, so that a launch reads device memory and not L2; one pinned
+    V-cycle at 128^3, plain against fused, each replayed in a graph, bit
+    for bit; the same ops, the 8^3 sweeps and pinned and unpinned V-cycles
+    in float64 on pins built in float64, and an unpinned float32 V-cycle,
+    bit for bit; a warm fast-tier and a warm default-tier solve:
+    ``STENCIL_LAUNCHES`` against the count their iterations give
+    (``stencil_path``), the main path's 16 iterations and the default
+    tier's 38.  The wavefront, host-projected, MINRES and float64 grid
+    phases check their warm solves' launches the same way (the wavefront's
+    none); the tet phase launches none of them.
 
 Every one-device solve on the card replays its device programs as CUDA
 graphs: the eager loops (``krylov.cg``, ``krylov.minres``,
@@ -198,6 +214,7 @@ does a machine without CUDA, and a directory without the repository.
 
 import contextlib
 import hashlib
+import itertools
 import json
 import os
 import statistics
@@ -355,6 +372,9 @@ F64_PHI_BANDS = dict(min=1e-2, max=1e-3, mean_abs=1e-3, src_mean_abs=1e-3)
 # the float64 residual is that of the host Gram factor in SuperLU's
 # symmetric mode (the default column ordering read 8.6153e-11)
 EAGER_MAIN = (16, "8.774778e-03")
+# the default tier's Krylov iterations on the main path's input: the
+# primary solve's and its three correction solves', 16 + 6 + 8 + 8 (PERF.md)
+DEFAULT_KRYLOV_ITERS = 38
 EAGER_FACE_ITERS, EAGER_VERTEX_ITERS = 341, 362
 EAGER_MINRES = (3973, "1.3055e-02")
 EAGER_F64_GRID = (76, "8.6288e-11")
@@ -378,6 +398,7 @@ GRAPH_STAT_KEYS = ("iters", "rel_res", "residual", "refine_pass_rels", "refine_r
                    "correction_iters", "proj_iters", "proj_residual", "proj_refine_pass_rels",
                    "wavefront_sweeps", "wavefront_visited")
 FP64_LANES = 64                # H100 SXM: FP64 results a clock an SM
+STENCIL_SETS = 8               # phase 24: 8 x 3 x 8.4 MB of inputs, four times the L2
 FP64_FLOOR_PER_PAIR = 12       # 3 sub, 3 for r^2, r, the exponent, the weight, 3 sums
 
 # roofline phase: bench_kernels.py's shapes (queries, sources), lambda 4
@@ -420,6 +441,12 @@ TURNS = ("eager", "graph", "graph")
 # phase 21's paths, whose eager solve's stop-test inputs the stop kernel is
 # held to: name -> (solver, geometry, options)
 STOP_PATHS = {}
+# the fused stencil kernels' launches in the warm one-device grid solves of
+# phase 24 and the phases after it, each path's against the count its
+# iterations give (``stencil_path``): name -> launches, expected, per solve
+STENCIL_PATHS = {}
+STENCIL_COUNTER = "shm3d_torch.solve.multigrid.STENCIL_LAUNCHES"
+CAPTURES_COUNTER = "shm3d_torch.solve.graphs.CAPTURES"
 
 
 def refuse_eager_loops(graphs):
@@ -1396,6 +1423,225 @@ def tri_gemv_phase(smi, dev, solver, geom, opts) -> dict:
             "per_path": {"products": times, "solves": counts}}
 
 
+def graph_ms(fn, reps: int = 20, replays: int = 5) -> float:
+    """Device time of one fn() call: ``reps`` calls captured into one CUDA
+    graph, replayed ``replays`` times between two events (the wrapper's
+    host time, which a solve's graphs do not pay, left out)."""
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        g.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (reps * replays)
+    del g
+    return ms
+
+
+def cycle_launches(n: int, pinned: bool, coarsest: int = 8) -> int:
+    """The fused stencil launches of one V-cycle from an n^3 level, n a
+    power of two: three a level above the coarsest (pre-smoothing, the
+    residual, post-smoothing); at the coarsest the pinned cycle's 40 sweeps
+    in one launch, the unpinned cycle's dense pinv none."""
+    levels = 0
+    while n > coarsest and n % 2 == 0:
+        levels, n = levels + 1, n // 2
+    return 3 * levels + (1 if pinned else 0)
+
+
+def krylov_launches(iters: int, cycle: int) -> int:
+    """``krylov.cg_run`` and ``krylov.minres_run``: the setup one Laplacian
+    and two V-cycles (CG: M r and M b; MINRES: M r1 and the right-hand
+    side's preconditioned norm), an iteration one of each."""
+    return 1 + 2 * cycle + iters * (1 + cycle)
+
+
+def expected_stencil(st, n: int, path: str, pinned: bool) -> int:
+    """The fused stencil launches a warm one-device grid solve makes, from
+    its stats: its Step 3 (``path``: "krylov", projected CG or MINRES on the
+    KKT system; "hostproj", the host-projected loop, whose u starts at 0, so
+    no Laplacian before its first V-cycle; "wavefront", none), then, where
+    the float64 defect correction ran (refine_mode "pair"), a float64
+    Laplacian a defect and each correction solve's projected CG on the
+    pinned V-cycle."""
+    cycle = cycle_launches(n, pinned)
+    if path == "krylov":
+        step3 = krylov_launches(st["iters"], cycle)
+    elif path == "hostproj":
+        step3 = cycle + st["iters"] * (1 + cycle)
+    else:
+        step3 = 0
+    corrections = st.get("correction_iters") or []
+    return (step3 + len(st.get("refine_pass_rels") or [])
+            + sum(krylov_launches(k, cycle_launches(n, True)) for k in corrections))
+
+
+def stencil_path(name: str, runs, n: int, path: str, pinned: bool) -> None:
+    """Record in STENCIL_PATHS, print and check the fused stencil launches
+    of a path's one-device solves (``runs``: their stats) against
+    ``expected_stencil``; a solve that captured a graph is left out (its
+    capture's warm-up runs a body once more), and one at least must be
+    warm."""
+    warm = [st for st in runs if st["counters"][CAPTURES_COUNTER] == 0]
+    got = [st["counters"][STENCIL_COUNTER] for st in warm]
+    want = [expected_stencil(st, n, path, pinned) for st in warm]
+    STENCIL_PATHS[name] = dict(launches=sum(got), expected=sum(want), per_solve=got,
+                               iters=[st.get("iters") for st in warm])
+    print(f"  stencil launches, {name}: {got} in {len(warm)} warm solves of {len(runs)}, "
+          f"expected {want} ({path}, {'pinned' if pinned else 'unpinned'} V-cycle from "
+          f"{n}^3, {cycle_launches(n, pinned)} launches)")
+    check(len(warm) > 0 and got == want,
+          f"{name}: the warm solves' stencil launches as their iterations give")
+
+
+def mg_stencil_phase(smi, dev, solver, geom, opts) -> dict:
+    """The V-cycle's fused stencil kernels (csrc/mg_stencil.cu) on the main
+    path's pin masks: each op at 128^3 and the 8^3 level's 40 sweeps in one
+    launch, bit for bit the plain op chain, timed in a CUDA graph against
+    its bytes bound and the plain chain; one pinned V-cycle at 128^3, plain
+    against fused, in a graph; ``STENCIL_LAUNCHES`` over a warm fast-tier
+    and default-tier solve against the count their iterations give.
+    Returns its kernels-line entry."""
+    from shm3d_torch.ops import stencil
+    from shm3d_torch.solve import multigrid as mg
+
+    cached = next(iter(solver._impl._cache.values()))
+    pins = cached["pin_masks"]
+    n, cell = cached["grid"].n, float(cached["grid"].cell_size)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    # STENCIL_SETS input sets of (u, b, mask), taken in turn, so that a
+    # timed launch finds its inputs in device memory and not in the 50 MB L2
+    sets = [(torch.randn((n, n, n), generator=gen, device=dev),
+             torch.randn((n, n, n), generator=gen, device=dev), pins[0].clone())
+            for _ in range(STENCIL_SETS)]
+    diag = mg._H_diag(cell)
+
+    def in_turn(fn):
+        turn = itertools.cycle(sets)
+        return lambda: fn(*next(turn))
+
+    ops = {
+        # name: (kernel, plain chain, level-sized arrays read and written)
+        "jacobi sweep": (
+            lambda u, b, m: mg.stencil_cuda("jacobi", u, b, cell, m),
+            lambda u, b, m: mg._jacobi(u, b, cell, diag, 1, m * (6.0 / (cell * cell))), 4),
+        "jacobi sweep from zero": (
+            lambda u, b, m: mg.stencil_cuda("jacobi", None, b, cell, m),
+            lambda u, b, m: mg._jacobi(torch.zeros_like(b), b, cell, diag, 1,
+                                       m * (6.0 / (cell * cell))), 3),
+        "residual": (
+            lambda u, b, m: mg.stencil_cuda("residual", u, b, cell, m),
+            lambda u, b, m: b - mg._Hp_apply(u, cell, m * (6.0 / (cell * cell))), 4),
+        "laplacian": (
+            lambda u, b, m: mg.stencil_cuda("laplacian", u, None, cell),
+            lambda u, b, m: stencil.laplacian_apply(u, cell), 2),
+    }
+    res, same = {}, {}
+    for name, (kern, plain, arrays) in ops.items():
+        same[name] = bool(torch.equal(kern(*sets[0]), plain(*sets[0])))
+        bound_us = arrays * 4 * n ** 3 / HBM_BYTES_S * 1e6
+        k1, p1 = graph_ms(in_turn(kern)), graph_ms(in_turn(plain))
+        p2, k2 = graph_ms(in_turn(plain)), graph_ms(in_turn(kern))
+        us = (k1 + k2) / 2 * 1e3
+        res[name] = dict(us=us, plain_us=(p1 + p2) / 2 * 1e3, bound_us=bound_us,
+                         roofline_pct=100.0 * bound_us / us, turns_us=[k1 * 1e3, p1 * 1e3,
+                                                                       p2 * 1e3, k2 * 1e3])
+    u, b, mask = sets[0]
+    del sets
+    # float64, as the float64 grid, the eager float64 Laplacian and a
+    # float64 pinned solve run it: each op at 128^3 on the pins built in
+    # float64 from the main path's pinned rows, bit for bit its plain chain
+    pins64 = mg.build_pin_masks(cached["pin_nodes8"], (n, n, n), torch.float64)
+    u64, b64 = (torch.randn((n, n, n), generator=gen, device=dev, dtype=torch.float64)
+                for _ in range(2))
+    for name, (kern, plain, _) in ops.items():
+        same[f"{name} float64"] = bool(torch.equal(kern(u64, b64, pins64[0]),
+                                                   plain(u64, b64, pins64[0])))
+    # the coarsest level: 40 sweeps from zero in one launch
+    m8 = pins[-1]
+    n8, cell8 = int(m8.shape[0]), cell * 2 ** (len(pins) - 1)
+    b8 = torch.randn((n8, n8, n8), generator=gen, device=dev)
+    l0 = mg.STENCIL_LAUNCHES
+    got8 = mg.stencil_cuda("jacobi", None, b8, cell8, m8, 40)
+    one_launch = mg.STENCIL_LAUNCHES - l0
+    w8 = m8 * (6.0 / (cell8 * cell8))
+    same["coarsest 40 sweeps"] = bool(torch.equal(
+        got8, mg._jacobi(torch.zeros_like(b8), b8, cell8, mg._H_diag(cell8), 40, w8)))
+    m8_64 = pins64[-1]
+    b8_64 = b8.to(torch.float64)
+    same["coarsest 40 sweeps float64"] = bool(torch.equal(
+        mg.stencil_cuda("jacobi", None, b8_64, cell8, m8_64, 40),
+        mg._jacobi(torch.zeros_like(b8_64), b8_64, cell8, mg._H_diag(cell8), 40,
+                   m8_64 * (6.0 / (cell8 * cell8)))))
+    c_us = graph_ms(lambda: mg.stencil_cuda("jacobi", None, b8, cell8, m8, 40)) * 1e3
+    c_plain_us = graph_ms(lambda: mg._jacobi(torch.zeros_like(b8), b8, cell8, mg._H_diag(cell8),
+                                             40, m8 * (6.0 / (cell8 * cell8))), reps=2) * 1e3
+    res["coarsest 40 sweeps"] = dict(us=c_us, plain_us=c_plain_us, n=n8, launches=one_launch)
+    # whole V-cycles at 128^3, fused and plain: pinned (the projected CG's)
+    # and unpinned (MINRES's, the host-projected loop's), float32 and
+    # float64; the pinned float32 one timed, each in a graph
+    cycles = {"pinned V-cycle": (b, pins), "unpinned V-cycle": (b, None),
+              "pinned V-cycle float64": (b64, pins64), "unpinned V-cycle float64": (b64, None)}
+    fused_vc = {k: mg.v_cycle(x, cell, pins=p) for k, (x, p) in cycles.items()}
+    real_fused = mg.fused
+    vc_fused_us = graph_ms(lambda: mg.v_cycle(b, cell, pins=pins), reps=5) * 1e3
+    mg.fused = lambda t: False
+    try:
+        plain_vc = {k: mg.v_cycle(x, cell, pins=p) for k, (x, p) in cycles.items()}
+        vc_plain_us = graph_ms(lambda: mg.v_cycle(b, cell, pins=pins), reps=5) * 1e3
+    finally:
+        mg.fused = real_fused
+    for k in cycles:
+        same[k] = bool(torch.equal(fused_vc[k], plain_vc[k]))
+    res["pinned V-cycle"] = dict(us=vc_fused_us, plain_us=vc_plain_us, levels=len(pins))
+    del u, b, u64, b64, fused_vc, plain_vc, cycles
+    torch.cuda.empty_cache()
+    print(f"fused stencil kernels at {n}^3 (float32, the main path's level-0 mask, cell "
+          f"{cell:.6g}): {json.dumps(res)}; bit for bit the plain ops (float32, and float64 "
+          f"on its own pins) {same} ({smi})")
+    check(all(same.values()), "the fused stencil kernels equal their plain op chains bit for bit")
+    check(one_launch == 1, "the coarsest level's 40 sweeps in one launch")
+
+    counts, stats = {}, {}
+    for tier, o in (("fast", opts), ("default", opts.with_(refine_steps=1))):
+        l0 = mg.STENCIL_LAUNCHES
+        solver.compute_distance(geom, o)
+        torch.cuda.synchronize()
+        stats[tier] = dict(solver.last_stats)
+        counts[tier] = dict(launches=mg.STENCIL_LAUNCHES - l0,
+                            counter=stats[tier]["counters"][STENCIL_COUNTER])
+    check(all(c["launches"] == c["counter"] for c in counts.values()),
+          "the solve's counters carry STENCIL_LAUNCHES")
+    check(cycle_launches(n, True) == 3 * (len(pins) - 1) + 1,
+          "a pinned V-cycle's launches: three a level above the coarsest, one there")
+    for tier in counts:
+        stencil_path(f"sphere52k-128 {tier} tier", [stats[tier]], n, "krylov", True)
+    st = stats["default"]
+    krylov = st["iters"] + sum(st.get("correction_iters") or [])
+    print(f"  default tier: {st['iters']} + {st.get('correction_iters')} iterations, "
+          f"{len(st.get('refine_pass_rels') or [])} float64 defects")
+    check(stats["fast"]["iters"] == EAGER_MAIN[0] and krylov == DEFAULT_KRYLOV_ITERS,
+          f"the fast tier's {EAGER_MAIN[0]} and the default tier's {DEFAULT_KRYLOV_ITERS} iterations")
+    kern = [r for k, r in res.items() if "bound_us" in r]
+    # the launches of the later phases' solves join these in main
+    return {"name": "mg_stencil", "route": "cuda", "source": "shm3d_torch/csrc/mg_stencil.cu",
+            "replaces": None, "launches": one_launch,
+            "max_abs_err": 0.0, "ms": sum(r["us"] for r in kern) / 1e3,
+            "plain_ms": sum(r["plain_us"] for r in kern) / 1e3,
+            "bound_ms": sum(r["bound_us"] for r in kern) / 1e3, "bound_by": "bytes",
+            "library_ms": None, "per_path": {"ops": res, "solves": STENCIL_PATHS}}
+
+
 @contextlib.contextmanager
 def no_plain_yukawa(yk):
     """K1's plain versions replaced by stubs that fail the run: a solve on
@@ -2041,6 +2287,8 @@ def hostproj_phase(smi, dev, geom, phi_ref_128):
     check(len({r["phi"] for r in runs}) == 1, "the host-projected solves give one phi")
     check(rel <= FAST_TIER_REL_L2_MAX, "host-projected fast tier within 1e-5 of the reference")
     check(all(r["k1"] == 2 for r in runs), "every host-projected solve launched K1 twice")
+    stencil_path("sphere52k-128 host-projected", [r["stats"] for r in runs], res.grid.n,
+                 "hostproj", False)
     profile_solve("warm host-projected solve", lambda: solver.compute_distance(geom, opts),
                   statistics.median([r["s"] for r in runs[1:]]), smi, names=GRID_KERNELS)
     return launches
@@ -2072,6 +2320,7 @@ def wavefront_phase(smi, dev, solver, geom, opts):
     check(len({r["phi"] for r in runs}) == 1 and bool(np.isfinite(res.phi).all()),
           "two wavefront solves give one finite phi")
     check(all(r["k1"] == 2 for r in runs), "every wavefront solve launched K1 twice")
+    stencil_path("sphere52k-128 wavefront", [r["stats"] for r in runs], g.n, "wavefront", False)
     profile_solve("wavefront solve", lambda: solver.compute_distance(
         geom, opts.with_(fast_integration=True)), runs[-1]["s"], smi, names=GRID_KERNELS)
     # a constant unit field integrates to the exact linear phi
@@ -2322,6 +2571,7 @@ def minres_phase(smi, dev, solver, geom, opts, main):
           f"{st['phases'][step3]:.3f} s, {1e3 * per_iter:.2f} ms an iteration; "
           f"{kkt.solver_maxiter} iterations would take {kkt.solver_maxiter * per_iter:.1f} s ({smi})")
     check(st["iters"] == 20 and st["step3_path"] == "minres-kkt", "20 MINRES iterations")
+    stencil_path("sphere52k-128 minres_kkt, 20 iterations", [st], res.grid.n, "krylov", False)
 
     # --- (a) the icosphere at 16^3: Step 3 in float64 on the card, on one
     # device and on four shards of it
@@ -2391,6 +2641,7 @@ def minres_phase(smi, dev, solver, geom, opts, main):
           f"{MINRES_ANALYTIC_BAND:.0%}) ({smi})")
     check(st_d["step3_path"] == "minres-kkt" and launches == 2 and len(entering) == 1,
           "the MINRES solve took its path with K1 twice")
+    stencil_path("sphere52k-128 minres_kkt, default tier", [st_d], res_d.grid.n, "krylov", False)
     check((st_d["iters"], f"{st_d['rel_res']:.4e}") == EAGER_MINRES,
           f"MINRES repeats the eager loops' {EAGER_MINRES[0]} iterations to phibar {EAGER_MINRES[1]}")
     check(bool(np.isfinite(res_b.phi).all()), "MINRES phi finite")
@@ -2658,6 +2909,8 @@ def f64_phase(smi, dev, geom, main):
     check(all(r["f64"] == (2, 0, 0) and r["f32"] == 0 and r["k2"] == 0 for r in runs),
           "every float64 grid solve launched float64 K1 twice, no float32 K1 and no K2")
     per_path["grid"] = dict(launches=sum(r["f64"][0] for r in runs))
+    stencil_path("sphere52k-128 float64 host-projected", [r["stats"] for r in runs],
+                 res.grid.n, "hostproj", False)
 
     # --- (a, continued) K1 at the main path's two launches
     cached = next(iter(solver._impl._cache.values()))
@@ -3461,6 +3714,8 @@ def main() -> int:
     stamp("default tier")
     tri_entry = tri_gemv_phase(smi, dev, solver, geom, opts)
     stamp("packed-triangle kernel")
+    mg_entry = mg_stencil_phase(smi, dev, solver, geom, opts)
+    stamp("fused stencil kernels")
     check_no_jax_package()
     sfu = sfu_pairs_per_s()
     mesh_k1, ring_k1 = mesh_phase(smi, dev, sfu, geom, opts, dict(
@@ -3487,7 +3742,11 @@ def main() -> int:
     k3_entry, _ = roofline_phase(yk, ys, plan, pts, vecs, lam, sfu, smi, dev)
     sell_cases(pell, ell, dev)
     stamp("roofline and K2 cases")
+    from shm3d_torch.solve import multigrid as mg
+
+    mg_before = mg.STENCIL_LAUNCHES
     tet_k1, tet_k2, tet_one = tet_phase(smi, dev, ceiling)
+    check(mg.STENCIL_LAUNCHES == mg_before, "the tet path launches no stencil kernel")
     stamp("tet")
     vertex_k1_launches, vertex_k2 = vertex_phase(smi, dev)
     stamp("tet vertex")
@@ -3555,6 +3814,7 @@ def main() -> int:
 
     def total(paths, key):
         return sum(p[key] for p in paths.values())
+    mg_entry["launches"] += total(STENCIL_PATHS, "launches")
     print(f"card: {smi}")
     print(json.dumps({"kernels": [{
         "name": "yukawa_field",
@@ -3595,7 +3855,7 @@ def main() -> int:
         "bound_by": "operations",
         "library_ms": None,
         "per_path": k1_f64["per_path"],
-    }, k3_entry, *stop_entries, tri_entry]}))
+    }, k3_entry, *stop_entries, tri_entry, mg_entry]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

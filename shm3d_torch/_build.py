@@ -211,6 +211,11 @@ def load_library() -> ctypes.CDLL:
     for name in ("shm3d_tri_gemv_n_f32", "shm3d_tri_gemv_t_f32"):
         getattr(lib, name).argtypes = [ptr, ptr, ptr, ctypes.c_int64, ctypes.c_int64, cint, ptr]
         getattr(lib, name).restype = cint
+    for suffix, scalar in (("f32", ctypes.c_float), ("f64", ctypes.c_double)):
+        fn = getattr(lib, f"shm3d_mg_stencil_{suffix}")
+        fn.argtypes = [cint, ptr, ptr, ptr, ptr, ctypes.c_int64,
+                       scalar, scalar, scalar, scalar, cint, cint, ptr]
+        fn.restype = cint
     for suffix in ("f32", "f64"):
         fn = getattr(lib, f"shm3d_cg_stop_{suffix}")
         fn.argtypes = [ptr, ptr, ptr, ptr, cint, handle, cint, cint, ptr]

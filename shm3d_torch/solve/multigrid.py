@@ -8,12 +8,22 @@ sweeps on the coarsest level.  With pin masks every level smooths on
 H + diag(mask * 6/cell^2), a Dirichlet penalty at the constraint surface
 that makes the V-cycle close to the projected operator the outer CG solves.
 
+On a level held as one CUDA tensor, each smoothing pass and residual
+is one launch of the fused kernels of ``csrc/mg_stencil.cu``
+(``stencil_cuda``; a level that fits one block runs all of its sweeps in
+one launch), and ``stencil_cuda`` raises on a CUDA level they cannot take
+(not a contiguous float32 or float64 cube): there is no fallback on the
+card.  Elsewhere (CPU tensors, z-slabs) the plain ops run, the kernels'
+twin: both give the same bits.  Restriction and prolongation are plain ops
+on every device.
+
 All functions are out of place: no caller's tensor is modified.  The slab
 V-cycle (``v_cycle_slabs``) runs the same cycle on a mesh of z-slabs.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import numpy as np
@@ -22,8 +32,21 @@ import torch
 from ..ops import stencil
 from ..parallel import slab
 from ..parallel.shards import Shards, halo_planes
+from . import graphs
 
 _OMEGA = 2.0 / 3.0
+
+# Launches of the fused stencil kernels (``stencil_cuda``), counted at each
+# run of a CUDA graph that holds one: 13 a pinned V-cycle over five levels
+# (three a level above the coarsest, one there), one a Laplacian.
+STENCIL_LAUNCHES = 0
+
+# the most nodes a level may have for all of its sweeps to run in one
+# launch (csrc/mg_stencil.cu: ONE_MAX_NODES)
+ONE_LAUNCH_NODES = 4096
+
+# the kernels' ops (csrc/mg_stencil.cu: LAPLACIAN, RESIDUAL, SWEEP)
+_OPS = {"laplacian": 0, "residual": 1, "jacobi": 2}
 
 
 # copied from shm3d/solve/multigrid.py (_coarse_pinv_unit)
@@ -52,6 +75,80 @@ def _coarse_pinv(n: int, dtype: torch.dtype, device: torch.device) -> torch.Tens
     if torch.device(device).type != "cuda":
         return host.to(device)
     return host.pin_memory().to(device, non_blocking=True)
+
+
+def fused(u) -> bool:
+    """The fused kernels take ``u``: one tensor on a CUDA device (z-slabs,
+    ``Shards`` or lists, and CPU tensors keep the plain ops)."""
+    return isinstance(u, torch.Tensor) and u.is_cuda
+
+
+def _scalars(cell: float, dtype: torch.dtype):
+    """The kernels' scalars, each as ATen's CUDA kernels take the plain ops'
+    Python scalar: a factor cast to the tensor's type, a division by a
+    scalar a product with its reciprocal, taken in float64 and then cast.
+    (1 / cell^2, the penalty scale and diagonal 6 / cell^2, omega,
+    1 / (6 / cell^2))."""
+    t = np.float32 if dtype == torch.float32 else np.float64
+    diag = _H_diag(cell)
+    return t(1.0 / (cell * cell)), t(diag), t(_OMEGA), t(1.0 / diag)
+
+
+def stencil_cuda(op: str, u, b, cell: float, mask=None, sweeps: int = 1) -> torch.Tensor:
+    """One level's ``op`` on the current stream, one launch (``jacobi``
+    past ONE_LAUNCH_NODES nodes: one a sweep); does not synchronize.
+    ``laplacian``: L u.  ``residual``: b - (H u + w u), w = mask *
+    6 / cell^2 (mask None: w = 0).  ``jacobi``: ``sweeps`` sweeps on
+    H + diag(w) from u (None: zero).  Each bit for bit its plain version
+    (``stencil.laplacian_apply``, ``b - _Hp_apply``, ``_jacobi``)."""
+    global STENCIL_LAUNCHES
+    given = [(name, t) for name, t in (("u", u), ("b", b), ("mask", mask)) if t is not None]
+    first, ref = given[0]
+    for name, t in given:
+        if t.dtype not in (torch.float32, torch.float64) or t.dtype != ref.dtype:
+            raise TypeError(f"{name}: the stencil kernels take float32 or float64 like "
+                            f"{first}, got {t.dtype}")
+    for name, t in given:
+        if t.dim() != 3 or len(set(t.shape)) != 1 or t.shape != ref.shape:
+            raise ValueError(f"{name}: expected an (n, n, n) level like {first}, "
+                             f"got {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: expected a contiguous tensor")
+    for name, t in given:
+        if t.device.type != "cuda" or t.device != ref.device:
+            raise ValueError(f"{name}: expected a CUDA tensor on {ref.device}, got {t.device}")
+    if (u is None and op != "jacobi") or (b is None and op != "laplacian") or sweeps < 1:
+        raise ValueError(f"{op}: missing operands or sweeps {sweeps} < 1")
+    n, device = int(ref.shape[0]), ref.device
+    launches = 1
+    if op == "jacobi" and sweeps > 1 and n ** 3 > ONE_LAUNCH_NODES:
+        launches, sweeps = sweeps, 1
+    from .._build import load_library
+
+    lib = load_library()
+    if ref.dtype == torch.float32:
+        entry, scalar = lib.shm3d_mg_stencil_f32, ctypes.c_float
+    else:
+        entry, scalar = lib.shm3d_mg_stencil_f64, ctypes.c_double
+    coeffs = [scalar(float(c)) for c in _scalars(cell, ref.dtype)]
+    index = device.index if device.index is not None else torch.cuda.current_device()
+
+    def ptr(t):
+        return ctypes.c_void_p(None if t is None else t.data_ptr())
+
+    with torch.cuda.device(device):
+        stream = ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+        for _ in range(launches):
+            out = torch.empty_like(ref)
+            err = entry(_OPS[op], ptr(u), ptr(b), ptr(mask), ptr(out), ctypes.c_int64(n),
+                        *coeffs, ctypes.c_int(sweeps), ctypes.c_int(index), stream)
+            if err != 0:
+                msg = lib.shm3d_cuda_error_string(err).decode()
+                raise RuntimeError(f"stencil kernel launch ({op}) failed: {msg} ({err})")
+            if not graphs.note_launch(__name__, "STENCIL_LAUNCHES"):
+                STENCIL_LAUNCHES += 1
+            u = out
+    return out
 
 
 def _Hp_apply(u, cell, w):
@@ -126,31 +223,41 @@ def prolong(e: torch.Tensor) -> torch.Tensor:
     return e.contiguous()
 
 
+def _level_ops(b: torch.Tensor, cell: float, mask):
+    """(smooth, residual) of one level on H + diag(w), w = mask * 6/cell^2
+    (mask None: w = 0): ``smooth(u, sweeps)`` from u (None: zero) and
+    ``residual(u)`` = b - (H + diag(w)) u; the fused kernels on a CUDA
+    level (``fused``), else the plain ops."""
+    if fused(b):
+        return (lambda u, sweeps: stencil_cuda("jacobi", u, b, cell, mask, sweeps),
+                lambda u: stencil_cuda("residual", u, b, cell, mask))
+    w = None if mask is None else mask * (6.0 / (cell * cell))
+    diag = _H_diag(cell)
+    return (lambda u, sweeps: _jacobi(torch.zeros_like(b) if u is None else u, b, cell,
+                                      diag, sweeps, w),
+            lambda u: b - _Hp_apply(u, cell, w))
+
+
 def v_cycle(b: torch.Tensor, cell: float, nu: int = 1, coarsest: int = 8, pins=None):
     """One symmetric V-cycle approximating H^{-1} b, H = -L at spacing
     ``cell``; ``b`` is (n, n, n).  ``pins``: optional tuple of per-level
     penalty masks in [0, 1] (level 0 first; ``build_pin_masks``)."""
     n = b.shape[0]
-    w = None
-    if pins is not None and len(pins) > 0:
-        w = pins[0] * (6.0 / (cell * cell))
-        pins_c = pins[1:]
-    else:
-        pins_c = None if pins is None else ()
+    mask = pins[0] if pins else None
+    pins_c = None if pins is None else pins[1:]
+    if n <= coarsest and n <= 16 and mask is None:
+        # dense pinv: 16^3 -> a 4096^2 matvec
+        pinv = _coarse_pinv(n, b.dtype, b.device)
+        return (cell * cell) * (pinv @ b.reshape(-1)).reshape(b.shape)
+    smooth, residual = _level_ops(b, cell, mask)
     if n <= coarsest:
-        if n <= 16 and w is None:  # dense pinv: 16^3 -> a 4096^2 matvec
-            pinv = _coarse_pinv(n, b.dtype, b.device)
-            return (cell * cell) * (pinv @ b.reshape(-1)).reshape(b.shape)
-        return _jacobi(torch.zeros_like(b), b, cell, _H_diag(cell), 40, w)
+        return smooth(None, 40)
     if n % 2:
         # odd resolution (fractional hCoef): cannot 2x-coarsen; smooth only
-        return _jacobi(torch.zeros_like(b), b, cell, _H_diag(cell), 20, w)
-    diag = _H_diag(cell)
-    u = _jacobi(torch.zeros_like(b), b, cell, diag, nu, w)
-    r = b - _Hp_apply(u, cell, w)
-    e = v_cycle(restrict(r), 2.0 * cell, nu, coarsest, pins_c)
-    u = u + prolong(e)
-    return _jacobi(u, b, cell, diag, nu, w)
+        return smooth(None, 20)
+    u = smooth(None, nu)
+    e = v_cycle(restrict(residual(u)), 2.0 * cell, nu, coarsest, pins_c)
+    return smooth(u + prolong(e), nu)
 
 
 def build_pin_masks(nodes8: torch.Tensor, shape, dtype: torch.dtype,

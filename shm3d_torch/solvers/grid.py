@@ -133,7 +133,10 @@ def _lap(u, cell_size: float, shape):
         n = shape[-1]
         lu = slab.laplacian_apply([p.reshape(-1, n, n) for p in u.parts], cell_size)
         return Shards([x.reshape(-1) for x in lu], u.mesh)
-    return stencil.laplacian_apply(u.reshape(shape), cell_size).reshape(-1)
+    u3 = u.reshape(shape)
+    if multigrid.fused(u3):
+        return multigrid.stencil_cuda("laplacian", u3, None, cell_size).reshape(-1)
+    return stencil.laplacian_apply(u3, cell_size).reshape(-1)
 
 
 def _rhs_div(Y, cell_size: float, shape, guard_nans: bool):

@@ -71,6 +71,7 @@ COUNTERS = (
     ("shm3d_torch.solve.graphs", "CAPTURES"),
     ("shm3d_torch.solve.projection", "TMAT_PRODUCTS"),
     ("shm3d_torch.solve.projection", "TRI_GEMV_LAUNCHES"),
+    ("shm3d_torch.solve.multigrid", "STENCIL_LAUNCHES"),
     ("shm3d_torch.parallel.rows", "ROW_BLOCK_LAUNCHES"),
     ("shm3d_torch.parallel.rows", "BROADCASTS"),
 )
